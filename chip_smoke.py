@@ -4,15 +4,20 @@
 
 Phases, each of which must pass (any failure exits non-zero and prints no result):
   1. card: name and power limit (nvidia-smi);
-  2. build: both CUDA kernels from csrc/, one nvcc each, started together;
+  2. build: both CUDA kernels from csrc/, one nvcc each, started together (always
+     compiled, so that ptxas's figures are printed);
   3. kernel 1 (soft-WPMI gather + log-reduce) against its plain PyTorch version at
-     the main path's shape (U = 6992 units, C = 762 concepts, k = 100, N = the probe);
+     the main path's shape (U = 6992 units, C = 762 concepts, k = 100, N = the probe),
+     and at p = 1 with clip_sm near 0 (every term near eps: the underflow guard); an
+     index outside [0, N) must raise;
   4. kernel 2 (MBConv expand + depthwise) against its plain version at every
-     EfficientNet-B5 block shape of the main path, bf16 at the main path's batch
-     and fp32 at batch 2;
-  5. times: each kernel, its plain version and its bound (the least time an H100 SXM
-     could take for the same work: 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s
-     fp32);
+     EfficientNet-B5 block shape of the main path: bf16 at the main path's batch,
+     bf16 at unit scale where the expand dominates each output, and fp32, both at
+     batch 2;
+  5. times: each kernel (kernel 1 through its wrapper, as the first version was
+     timed, and its launch alone), its plain version and its bound (the least time
+     an H100 SXM could take for the same work: 3.35 TB/s, 989 TFLOP/s bf16 tensor,
+     67 TFLOP/s fp32);
   6. the main path: `run_dissection` resident at full width (B5 at 1520x912, all 39
      blocks, 12-layer BERT, the 762 concepts, soft-WPMI, bf16 tower) on random
      weights from a seed and mammogram-shaped synthetic images; the kernels' launch
@@ -20,14 +25,17 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
   7. end-to-end agreement: the same resident dissection at a small geometry in fp32
      (TF32 off) on the card (kernels) and on the CPU (plain versions).
 
-Prints the card's name and power limit and a JSON line {"kernels": [...]} before the
-last line; the last line is {"ok": true, "device": {...}}. Imports torch and the
-port only."""
+Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
+and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
+card's name and power limit and a JSON line {"kernels": [...]} before the last
+line; the last line is {"ok": true, "device": {...}}. Imports torch and the port
+only."""
 from __future__ import annotations
 
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,17 +55,20 @@ IMAGE_HW = (1520, 912)
 POOL = 64              # unique synthetic mammograms, repeated cyclically
 CONCEPTS = os.path.join(ROOT, "mammodissect", "assets", "concepts",
                         "Specific_concepts_sorted.txt")
-# (k, H, W, Cin, Cexp, number of B5 blocks of this shape) at 1520x912
+# (k, H, W, Cin, Cexp, number of B5 blocks of this shape, the first version's ms)
+# at 1520x912; the last column is the first CUDA version's time per launch at batch
+# 16, bf16 (PERF.md, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
 B5_SHAPES = [
-    (3, 380, 228, 40, 240, 4),      # blocks 4-7
-    (5, 190, 114, 64, 384, 4),      # 9-12
-    (3, 95, 57, 128, 768, 6),       # 14-19
-    (5, 95, 57, 128, 768, 1),       # 20
-    (5, 95, 57, 176, 1056, 6),      # 21-26
-    (5, 48, 29, 304, 1824, 8),      # 28-35
-    (3, 48, 29, 304, 1824, 1),      # 36
-    (3, 48, 29, 512, 3072, 2),      # 37-38
+    (3, 380, 228, 40, 240, 4, 6.163),      # blocks 4-7
+    (5, 190, 114, 64, 384, 4, 2.999),      # 9-12
+    (3, 95, 57, 128, 768, 6, 2.153),       # 14-19
+    (5, 95, 57, 128, 768, 1, 2.474),       # 20
+    (5, 95, 57, 176, 1056, 6, 4.818),      # 21-26
+    (5, 48, 29, 304, 1824, 8, 3.217),      # 28-35
+    (3, 48, 29, 304, 1824, 1, 2.840),      # 36
+    (3, 48, 29, 512, 3072, 2, 7.223),      # 37-38
 ]
+FIRST_VERSION_MS = {"wpmi": 0.923, "mbconv_forward": 124.0}  # same source and card
 
 
 def say(*a):
@@ -122,13 +133,67 @@ def phase_card():
     return out.splitlines()[0]
 
 
+def ptxas_summary(log):
+    """[{function, registers, stack_frame, spill_stores, spill_loads, static_smem}]
+    from nvcc's -Xptxas=-v output, one entry per compiled kernel."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur["stack_frame"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                s = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(s.group(1)) if s else 0
+    return rows
+
+
+# label -> a fragment of the mangled name, for every kernel the sources compile
+KERNEL_LABELS = {"mbconv bf16 k3": "expand_dw_bf16_kernelILi3",
+                 "mbconv bf16 k5": "expand_dw_bf16_kernelILi5",
+                 "mbconv fp32 k3": "expand_dw_f32_kernelILi3",
+                 "mbconv fp32 k5": "expand_dw_f32_kernelILi5",
+                 "wpmi slab": "gather_logsum_slab_kernel",
+                 "wpmi gather": "gather_logsum_kernel"}
+
+
+def kernel_label(function):
+    for label, key in KERNEL_LABELS.items():
+        if key in function:
+            return label
+    return function
+
+
 def phase_build():
+    """Both kernels built from csrc/ with -Xptxas=-v; fails when a bf16 instantiation
+    of kernel 2 or kernel 1 spills registers."""
     from mammodissect_torch.ops import kernels
 
     t0 = time.perf_counter()
-    report = kernels.build()
+    report = kernels.build(ptxas_verbose=True)
     seconds = time.perf_counter() - t0
     say(f"[build] {sorted(report)} in {seconds:.2f} s (nvcc, sm_90a, in parallel)")
+    seen = set()
+    for name in sorted(report):
+        for row in ptxas_summary(report[name]["log"]):
+            row["kernel"] = kernel_label(row.pop("function"))
+            seen.add(row["kernel"])
+            say(f"[ptxas] {row['kernel']}: {row.get('registers')} registers, "
+                f"{row.get('static_smem')} bytes static smem, {row.get('stack_frame')} bytes "
+                f"stack frame, {row.get('spill_stores')} bytes spill stores, "
+                f"{row.get('spill_loads')} bytes spill loads")
+            if "fp32" not in row["kernel"]:
+                check(row.get("spill_stores") == 0 and row.get("spill_loads") == 0,
+                      f"{row['kernel']} spills registers: {row}")
+    missing = set(KERNEL_LABELS) - seen
+    check(not missing, f"no ptxas figures for {sorted(missing)}")
     return seconds
 
 
@@ -136,6 +201,7 @@ def phase_wpmi(n_images, device):
     import torch
 
     from mammodissect_torch.ops.cuda_wpmi import (
+        _launch,
         soft_wpmi_gather_logsum,
         soft_wpmi_gather_logsum_plain,
     )
@@ -145,31 +211,64 @@ def phase_wpmi(n_images, device):
     clip_sm = torch.softmax(torch.randn((n_images, c), generator=g) * 4, dim=1).to(device)
     inds = torch.randint(0, n_images, (u, k), generator=g, dtype=torch.int32).to(device)
     p_in = (0.998 - torch.arange(k) / 100 * (0.998 - 0.97)).float().to(device)
-    got = soft_wpmi_gather_logsum(clip_sm, inds, p_in)
-    want = soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    tol = 1e-5 + 1e-5 * want.abs()
-    check(bool((err <= tol).all()), f"kernel 1 disagrees: max abs err {float(err.max())}")
+    # the underflow guard: p = 1 and clip_sm near 0, so every term is near eps = 1e-7
+    # and a product of a few terms would leave fp32's range without it
+    near_zero = (torch.rand((n_images, c), generator=g) * 1e-6).to(device)
+    # N = 4 x the probe: clip_sm's column block no longer fits shared memory, so the
+    # kernel takes its L2 gather design (the main path's N takes the slab design)
+    n_large = 4 * n_images
+    large = torch.softmax(torch.randn((n_large, c), generator=g) * 4, dim=1).to(device)
+    inds_large = torch.randint(0, n_large, (u, k), generator=g, dtype=torch.int32).to(device)
+    errs = {}
+    for case, (x, ind, p) in {
+            "main": (clip_sm, inds, p_in),
+            "p=1, clip_sm near 0": (near_zero, inds, torch.ones_like(p_in)),
+            f"gather design, N={n_large}": (large, inds_large, p_in)}.items():
+        got = soft_wpmi_gather_logsum(x, ind, p)
+        want = soft_wpmi_gather_logsum_plain(x, ind, p)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(want).all()), f"kernel 1 ({case}): plain version not finite")
+        err = (got - want).abs()
+        check(bool((err <= 1e-5 + 1e-5 * want.abs()).all()),
+              f"kernel 1 disagrees ({case}): max abs err {float(err.max())}")
+        errs[case] = float(err.max())
+        say(f"[kernel 1] {case}: max abs err {errs[case]:.3g} on values down to "
+            f"{float(want.min()):.1f} (tol 1e-5 + 1e-5|x|)")
+    try:  # an index outside [0, N) raises, from the kernel's own check
+        soft_wpmi_gather_logsum(clip_sm, torch.full_like(inds, n_images), p_in)
+        raised = False
+    except IndexError:
+        raised = True
+    check(raised, "kernel 1 took an index outside [0, N) without raising")
+    # ms: through the wrapper, the first version's span (shape checks, the launch, the host
+    # read of the kernel's index flag); launch_ms: the kernel's launch alone
     ms = cuda_ms(lambda: soft_wpmi_gather_logsum(clip_sm, inds, p_in), reps=20, warmup=2)
+    launch_ms = cuda_ms(lambda: _launch(clip_sm, inds, p_in, 1e-7), reps=20, warmup=2)
     plain_ms = cuda_ms(lambda: soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in), reps=3)
+    large_ms = cuda_ms(lambda: soft_wpmi_gather_logsum(large, inds_large, p_in), reps=20, warmup=2)
     bytes_ = n_images * c * 4 + u * k * 4 + k * 4 + u * c * 4
-    ops = u * k * c * 6  # x-1, multiply-add, +eps, log, accumulate (fp32 pipes)
+    ops = u * k * c * 4  # per term: x - 1, multiply-add by p, + eps, multiply into the product
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
-    row = {"shape": {"U": u, "C": c, "k": k, "N": n_images}, "max_abs_err": float(err.max()),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    say(f"[kernel 1] U={u} C={c} k={k} N={n_images}: max abs err {row['max_abs_err']:.3g} "
-        f"(tol 1e-5 + 1e-5|x|); {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    row = {"shape": {"U": u, "C": c, "k": k, "N": n_images}, "max_abs_err": max(errs.values()),
+           "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "gather_design_ms": large_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    say(f"[kernel 1] U={u} C={c} k={k} N={n_images}: {ms:.4f} ms through the wrapper (first "
+        f"version {FIRST_VERSION_MS['wpmi']} ms, same span), launch alone {launch_ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+        f"N={n_large} (gather design) {large_ms:.4f} ms through the wrapper")
     return row
 
 
-def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed):
+def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=False):
     """Random inputs of kernel 2. bf16 uses the scales of tests/test_pallas_mbconv.py
     (x 0.1, weights 0.05), where its 2e-3/2e-2 tolerance was set: at unit scale a
     one-ulp difference in the bf16-rounded expanded tensor (the two versions sum the
-    expand in another order before rounding) exceeds it. fp32 runs at unit scale."""
+    expand in another order before rounding) exceeds it. fp32 runs at unit scale.
+
+    expand_dominant (bf16): x and the expand at unit scale, depthwise weights ~1/K^2
+    and no BN2 bias, so each output is about the mean of its window's expanded values
+    and any fault of the expand (a dropped channel chunk, a wrong tail tile) moves it
+    far past EXPAND_DOMINANT_TOL."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -181,10 +280,20 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed):
     def pos(n):
         return (torch.rand((n,), generator=g) + 0.5).to(device)
 
+    if expand_dominant:
+        w_dw = (1.0 + rnd(k, k, cexp, scale=0.1)) / (k * k)
+        return (rnd(b, h, w, cin).to(dtype), rnd(cin, cexp, scale=cin ** -0.5).to(dtype),
+                pos(cexp), rnd(cexp, scale=0.1), w_dw.to(dtype), pos(cexp),
+                torch.zeros(cexp, device=device))
     return (rnd(b, h, w, cin, scale=0.1 if bf16 else 1.0).to(dtype),
             rnd(cin, cexp, scale=0.05 if bf16 else cin ** -0.5).to(dtype),
             pos(cexp), rnd(cexp, scale=0.1), rnd(k, k, cexp, scale=0.05 if bf16 else 0.2).to(dtype),
             pos(cexp), rnd(cexp, scale=0.1))
+
+
+# bf16 at unit scale: rtol 2^-7 is one to two bf16 ulps of the output; atol covers two
+# one-ulp flips of the bf16 expanded tensor (weighted ~1/K^2) at outputs near 0
+EXPAND_DOMINANT_TOL = (4e-3, 2.0 ** -7)
 
 
 def phase_mbconv(device):
@@ -193,23 +302,25 @@ def phase_mbconv(device):
     from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 
     rows = []
-    for i, (k, h, w, cin, cexp, n_blocks) in enumerate(B5_SHAPES):
+    for i, (k, h, w, cin, cexp, n_blocks, first_ms) in enumerate(B5_SHAPES):
         row = {"k": k, "H": h, "W": w, "Cin": cin, "Cexp": cexp, "blocks": n_blocks}
-        for dtype, b, atol, rtol in ((torch.bfloat16, MAIN_BATCH, 2e-3, 2e-2),
-                                     (torch.float32, 2, 1e-4, 1e-4)):
-            args = _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=10 + i)
+        for name, dtype, b, (atol, rtol) in (
+                ("bf16", torch.bfloat16, MAIN_BATCH, (2e-3, 2e-2)),
+                ("bf16_unit", torch.bfloat16, 2, EXPAND_DOMINANT_TOL),
+                ("fp32", torch.float32, 2, (1e-4, 1e-4))):
+            args = _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=10 + i,
+                                expand_dominant=name == "bf16_unit")
             got = fused_expand_dw(*args).float()
             want = expand_dw_plain(*args).float()
             torch.cuda.synchronize()
             err = (got - want).abs()
-            name = "bf16" if dtype == torch.bfloat16 else "fp32"
             check(bool((err <= atol + rtol * want.abs()).all()),
                   f"kernel 2 disagrees ({name}, {row}): max abs err {float(err.max())}")
             edge = torch.cat([err[:, :2].flatten(), err[:, -2:].flatten(),
                               err[:, :, :2].flatten(), err[:, :, -2:].flatten()])
             row[f"max_abs_err_{name}"] = float(err.max())
             row[f"border_max_abs_err_{name}"] = float(edge.max())
-            if dtype == torch.bfloat16:
+            if name == "bf16":
                 row["ms"] = cuda_ms(lambda: fused_expand_dw(*args), reps=5)
                 row["plain_ms"] = cuda_ms(lambda: expand_dw_plain(*args), reps=2)
                 pix = b * h * w
@@ -223,8 +334,11 @@ def phase_mbconv(device):
         rows.append(row)
         say(f"[kernel 2] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH} bf16: "
             f"max abs err {row['max_abs_err_bf16']:.3g} (border {row['border_max_abs_err_bf16']:.3g}); "
-            f"fp32 B=2: {row['max_abs_err_fp32']:.3g}; {row['ms']:.3f} ms, plain "
-            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"bf16 unit scale B=2: {row['max_abs_err_bf16_unit']:.3g} "
+            f"(border {row['border_max_abs_err_bf16_unit']:.3g}); "
+            f"fp32 B=2: {row['max_abs_err_fp32']:.3g}; {row['ms']:.4f} ms (first version "
+            f"{first_ms:.3f} ms), plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
     torch.cuda.empty_cache()
     return rows
 
@@ -341,7 +455,9 @@ def main():
          "source": "mammodissect_torch/csrc/wpmi_gather_logsum.cu",
          "replaces": "mammodissect/ops/pallas_wpmi.py:81",
          "launches": main_path["launches"]["wpmi"], "max_abs_err": wpmi["max_abs_err"],
-         "ms": wpmi["ms"], "plain_ms": wpmi["plain_ms"], "bound_ms": wpmi["bound_ms"],
+         # ms and wrapper_ms: through the wrapper (the first version's span); launch_ms: alone
+         "ms": wpmi["ms"], "wrapper_ms": wpmi["ms"], "launch_ms": wpmi["launch_ms"],
+         "plain_ms": wpmi["plain_ms"], "bound_ms": wpmi["bound_ms"],
          "bound_by": wpmi["bound_by"], "library_ms": None},
         {"name": "fused_expand_dw", "route": "cuda",
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
@@ -354,6 +470,9 @@ def main():
          "bound_by": "bytes" if t_bytes_share * 2 >= per_forward("bound_ms") else "operations",
          "library_ms": None},
     ]
+    say(f"[kernel 2] one forward's 32 launches at batch {MAIN_BATCH}, bf16: "
+        f"{per_forward('ms'):.3f} ms (first version {FIRST_VERSION_MS['mbconv_forward']} ms), "
+        f"bound {per_forward('bound_ms'):.3f} ms")
     say(f"[done] torch {torch.__version__}, CUDA {torch.version.cuda}, build {build_s:.2f} s, "
         f"agreement {agreement['top1_agreement']:.4f}, total {time.perf_counter() - t_start:.1f} s")
     say(card)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
@@ -73,8 +74,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "hardcoded name matrix")
     p.add_argument("--profile", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the run to this file and "
-                        "print the top operators by device (or CPU) time")
+                        "print the top operators by device (or CPU) time and the device's "
+                        "busy time and idle share over the run")
     return p
+
+
+def device_busy(trace_events) -> dict:
+    """Device-busy time of a Chrome trace's events (kernels, copies and memsets on
+    the device; overlapping spans count once), in seconds, and the span from the
+    first device event's start to the last one's end."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in trace_events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "ts" in e)
+    busy, end = 0.0, None
+    for t0, t1 in spans:
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    first_to_last = (max(t1 for _, t1 in spans) - spans[0][0]) if spans else 0.0
+    return {"busy_s": busy / 1e6, "first_to_last_s": first_to_last / 1e6}
 
 
 def main(argv=None):
@@ -112,10 +132,19 @@ def main(argv=None):
         on_gpu = cfg.device.startswith("cuda")
         activities = [tp.ProfilerActivity.CPU] + ([tp.ProfilerActivity.CUDA] if on_gpu else [])
         with tp.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
             df, csv_path = run_dissection(cfg, log=print)
+            wall = time.perf_counter() - t0
         prof.export_chrome_trace(args.profile)
         sort_by = "self_device_time_total" if on_gpu else "self_cpu_time_total"
         print(prof.key_averages().table(sort_by=sort_by, row_limit=25))
+        if on_gpu:  # the device's idle share, from this run's own trace
+            with open(args.profile) as f:
+                dev = device_busy(json.load(f).get("traceEvents", []))
+            span = dev["first_to_last_s"]
+            print(f"[profile] device busy {dev['busy_s']:.3f} s; run {wall:.3f} s wall "
+                  f"(idle {1 - dev['busy_s'] / wall:.1%}); first to last device op "
+                  f"{span:.3f} s (idle {1 - dev['busy_s'] / span if span else 0:.1%})")
     else:
         df, csv_path = run_dissection(cfg, log=print)
     print(f"Dissection done! {len(df)} units described. Results saved to {csv_path}")

@@ -142,17 +142,54 @@ class MBConvBlock(nn.Module):
         # an expansion (strided and expand-1 blocks stay on F.conv2d)
         self.fused_front = args.stride == 1 and args.expand_ratio != 1
 
-    def _front_fused(self, x: torch.Tensor) -> torch.Tensor:
-        """expand -> BN0 -> SiLU -> depthwise -> BN1 -> SiLU through `fused_expand_dw`
-        on the NHWC view of x (free for channels_last x); returns NCHW channels_last."""
+    def _front_sources(self):
+        return (self._expand_conv.weight, self._depthwise_conv.weight,
+                *(getattr(bn, name) for bn in (self._bn0, self._bn1)
+                  for name in ("weight", "bias", "running_mean", "running_var")))
+
+    def _front_weights(self):
+        """(w_exp [Cin, Cexp], s1, b1, w_dw [k, k, Cexp], s2, b2) in the kernel's
+        layout: contiguous weights, BatchNorms folded to float32 scale/bias."""
         c_exp, c_in = self._expand_conv.weight.shape[:2]
         k = self.args.kernel_size
         s1, b1 = fold_bn(self._bn0.weight, self._bn0.bias, self._bn0.running_mean,
                          self._bn0.running_var, self._bn0.eps)
         s2, b2 = fold_bn(self._bn1.weight, self._bn1.bias, self._bn1.running_mean,
                          self._bn1.running_var, self._bn1.eps)
-        w_exp = self._expand_conv.weight.reshape(c_exp, c_in).t()  # [Cin, Cexp]
-        w_dw = self._depthwise_conv.weight.reshape(c_exp, k, k).permute(1, 2, 0)  # [k, k, Cexp]
+        w_exp = self._expand_conv.weight.reshape(c_exp, c_in).t().contiguous()
+        w_dw = self._depthwise_conv.weight.reshape(c_exp, k, k).permute(1, 2, 0).contiguous()
+        return w_exp, s1, b1, w_dw, s2, b2
+
+    def _front_weights_cached(self):
+        """`_front_weights`, prepared once and reused while no source tensor changes.
+
+        The cache holds a detached alias of each source tensor with its version
+        counter at preparation (bumped by every in-place write, `load_state_dict`
+        included), and both BN eps. The aliases keep the old storage alive, so a
+        source whose storage was replaced (`param.data = ...`, `.to()`,
+        `load_state_dict(assign=True)`) can never match an old address, and new
+        weights are never served stale; the old storage is released at the next
+        preparation. Writes through `.data` bypass the version counter and are not
+        seen, as for autograd. Only inference caches (eval mode, grad off, as on the
+        main path): elsewhere the weights keep their autograd history."""
+        if self.training or torch.is_grad_enabled():
+            return self._front_weights()
+        sources = self._front_sources()
+        cached = self.__dict__.get("_front_cache")
+        fresh = cached is not None and cached[0] == (self._bn0.eps, self._bn1.eps) and all(
+            t.data_ptr() == held.data_ptr() and t._version == version and t.shape == held.shape
+            for t, (held, version) in zip(sources, cached[1]))
+        if not fresh:
+            with torch.inference_mode(False), torch.no_grad():
+                cached = ((self._bn0.eps, self._bn1.eps),
+                          tuple((t.detach(), t._version) for t in sources), self._front_weights())
+            self.__dict__["_front_cache"] = cached
+        return cached[2]
+
+    def _front_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """expand -> BN0 -> SiLU -> depthwise -> BN1 -> SiLU through `fused_expand_dw`
+        on the NHWC view of x (free for channels_last x); returns NCHW channels_last."""
+        w_exp, s1, b1, w_dw, s2, b2 = self._front_weights_cached()
         x_nhwc = x.to(w_exp.dtype).permute(0, 2, 3, 1)
         return fused_expand_dw(x_nhwc, w_exp, s1, b1, w_dw, s2, b2).permute(0, 3, 1, 2)
 

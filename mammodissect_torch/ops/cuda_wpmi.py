@@ -16,7 +16,8 @@ import torch
 
 from mammodissect_torch.ops import kernels
 
-_MAX_UNIT_TILES = 65535  # gridDim.y of the launch, 8 units per tile
+_MAX_UNIT_TILES = 65535  # gridDim.y of the kernel's gather design
+_UNITS_PER_TILE = 4      # its U_TILE
 
 
 def soft_wpmi_gather_logsum_plain(clip_sm: torch.Tensor, inds: torch.Tensor,
@@ -35,10 +36,10 @@ def soft_wpmi_gather_logsum_plain(clip_sm: torch.Tensor, inds: torch.Tensor,
     return out
 
 
-def _launch(clip_sm: torch.Tensor, inds: torch.Tensor, p_in: torch.Tensor,
-            min_prob: float) -> torch.Tensor:
-    n, c = clip_sm.shape
-    u, k = inds.shape
+def _check(clip_sm: torch.Tensor, inds: torch.Tensor, p_in: torch.Tensor) -> None:
+    """Raise on what the kernel does not take (no host sync; the kernel itself checks
+    that the indices lie in [0, N))."""
+    _, k = inds.shape
     if clip_sm.dtype != torch.float32 or p_in.dtype != torch.float32:
         raise TypeError("soft_wpmi_gather_logsum: clip_sm and p_in must be float32")
     if inds.dtype != torch.int32:
@@ -47,36 +48,59 @@ def _launch(clip_sm: torch.Tensor, inds: torch.Tensor, p_in: torch.Tensor,
         raise ValueError(f"soft_wpmi_gather_logsum: p_in {tuple(p_in.shape)} != ({k},)")
     if not (clip_sm.device == inds.device == p_in.device):
         raise ValueError("soft_wpmi_gather_logsum: all inputs must be on one device")
-    if -(-u // 8) > _MAX_UNIT_TILES:
-        raise ValueError(f"soft_wpmi_gather_logsum: {u} units exceed one launch")
-    if u and k and (int(inds.min()) < 0 or int(inds.max()) >= n):
-        raise IndexError(f"soft_wpmi_gather_logsum: indices outside [0, {n})")
+    if -(-inds.shape[0] // _UNITS_PER_TILE) > _MAX_UNIT_TILES:
+        raise ValueError(f"soft_wpmi_gather_logsum: {inds.shape[0]} units exceed one launch")
+    if clip_sm.shape[0] == 0 and inds.numel():  # no row 0 to read in a bad index's place
+        raise IndexError("soft_wpmi_gather_logsum: indices into an empty clip_sm")
+
+
+def _entry():
+    """The library's C entry point, its argument types set once."""
+    fn = kernels.load("wpmi_gather_logsum").wpmi_gather_logsum
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(clip_sm: torch.Tensor, inds: torch.Tensor, p_in: torch.Tensor,
+            min_prob: float):
+    """The kernel on inputs that passed `_check`, with no host sync. Returns (pde,
+    bad): bad is one int32 on the device, 1 when an index lay outside [0, N) (the
+    kernel then read row 0 in its place)."""
+    n, c = clip_sm.shape
+    u, k = inds.shape
     clip_sm, inds, p_in = clip_sm.contiguous(), inds.contiguous(), p_in.contiguous()
     out = torch.empty((u, c), dtype=torch.float32, device=clip_sm.device)
-    lib = kernels.load("wpmi_gather_logsum")
-    fn = lib.wpmi_gather_logsum
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    bad = torch.empty((1,), dtype=torch.int32, device=clip_sm.device)
+    fn = _entry()
     with torch.cuda.device(clip_sm.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(clip_sm.data_ptr(), inds.data_ptr(), p_in.data_ptr(), out.data_ptr(),
-                c, u, k, float(min_prob), stream)
+                bad.data_ptr(), n, c, u, k, float(min_prob), stream)
     kernels.check(rc, "wpmi_gather_logsum")
     soft_wpmi_gather_logsum.launches += 1
-    return out
+    return out, bad
 
 
 def soft_wpmi_gather_logsum(clip_sm: torch.Tensor, inds: torch.Tensor, p_in: torch.Tensor,
                             min_prob: float = 1e-7) -> torch.Tensor:
     """clip_sm [N, C] f32 (softmaxed), inds [U, k], p_in [k] f32 -> pde [U, C] f32.
 
-    CUDA tensors go through the kernel (int32 indices; a launch error raises),
-    CPU tensors through `soft_wpmi_gather_logsum_plain`."""
+    CUDA tensors go through the kernel (int32 indices; a launch error raises, and so
+    does an index outside [0, N), at the one host sync of the call), CPU tensors
+    through `soft_wpmi_gather_logsum_plain`."""
     if clip_sm.device.type == "cpu":
         return soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in, min_prob)
     if clip_sm.device.type != "cuda":
         raise ValueError(f"soft_wpmi_gather_logsum: unsupported device {clip_sm.device}")
-    return _launch(clip_sm, inds.to(torch.int32), p_in, min_prob)
+    inds = inds.to(torch.int32)
+    _check(clip_sm, inds, p_in)
+    out, bad = _launch(clip_sm, inds, p_in, min_prob)
+    if bad.item():
+        raise IndexError(f"soft_wpmi_gather_logsum: indices outside [0, {clip_sm.shape[0]})")
+    return out
 
 
 soft_wpmi_gather_logsum.launches = 0

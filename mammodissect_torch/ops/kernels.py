@@ -2,8 +2,9 @@
 
 Each source is one shared library with a plain C interface, compiled by nvcc for
 sm_90a (Hopper) into `build/mammodissect_torch/` beside the package on first use.
-The library's file name carries a digest of its source and flags, so an edited
-source is rebuilt and a stale build is never loaded. Several sources build in
+The library's file name carries a digest of its source, the headers under `csrc/`
+and the flags, so an edited source or header is rebuilt and a stale build is never
+loaded. Several sources build in
 parallel, one nvcc process each (`build`).
 
 Calling convention of every C entry point: tensor pointers and the CUDA stream
@@ -47,13 +48,19 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """`build/.../lib<name>_<digest>.so`; the digest covers the source, every header
+    under `csrc/` (any source may include any of them) and the nvcc flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    headers = sorted(p for p in CSRC.iterdir() if p.suffix in (".cuh", ".h"))
+    for header in headers:
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False) -> Dict[str, dict]:
-    """Compile the named sources that are not built yet, all nvcc processes started
+    """Compile the named sources that are not built yet (all of them with
+    `ptxas_verbose`, whose log carries ptxas's figures), all nvcc processes started
     together. Returns {name: {"seconds", "cached", "log"}}; raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     extra = ("-Xptxas=-v",) if ptxas_verbose else ()
@@ -62,7 +69,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False) ->
     t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and not ptxas_verbose:
             report[name] = {"seconds": 0.0, "cached": True, "log": ""}
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")

@@ -28,8 +28,11 @@ def cuda():
 
 
 @pytest.mark.parametrize("u,c,n,k", [(13, 200, 50, 7), (6992, 762, 1024, 100),
-                                     (9, 130, 300, 260)])
+                                     (9, 130, 300, 260), (70, 301, 3000, 50),
+                                     (6992, 762, 2048, 100)])
 def test_wpmi_kernel_matches_plain(cuda, u, c, n, k):
+    """N <= ~1800 runs the shared-memory slab design, larger N (3000, 2048) the L2
+    gather design."""
     rng = np.random.default_rng(3)
     clip_sm = torch.softmax(torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)) * 4, 1)
     inds = torch.from_numpy(rng.integers(0, n, size=(u, k)).astype(np.int32))
@@ -41,6 +44,54 @@ def test_wpmi_kernel_matches_plain(cuda, u, c, n, k):
     assert soft_wpmi_gather_logsum.launches == before + 1
     want = soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [64, 2500])
+def test_wpmi_kernel_underflow_guard(cuda, n):
+    """p = 1 and clip_sm entries near 0: every term is near eps = 1e-7, so a product
+    of a few terms would underflow fp32 without the kernel's exponent bookkeeping
+    (n = 64: the slab design, 2500: the gather design)."""
+    u, c, k = 37, 762, 100
+    rng = np.random.default_rng(5)
+    clip_sm = torch.from_numpy((rng.uniform(0, 1e-6, size=(n, c))).astype(np.float32))
+    clip_sm[:, :3] = 0.0  # terms of exactly eps
+    inds = torch.from_numpy(rng.integers(0, n, size=(u, k)).astype(np.int32))
+    p_in = torch.ones(k, dtype=torch.float32)
+    clip_sm, inds, p_in = clip_sm.to(cuda), inds.to(cuda), p_in.to(cuda)
+    got = soft_wpmi_gather_logsum(clip_sm, inds, p_in)
+    want = soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in)
+    assert bool(torch.isfinite(want).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [64, 2500])
+def test_wpmi_kernel_zero_and_negative_terms(cuda, n):
+    """Columns whose terms are zero (min_prob 0, clip_sm 0, p 1: -inf) or negative
+    (clip_sm < 0: NaN) leave the kernel's grouped product and are redone term by
+    term; the other columns keep the grouped form. Both give the plain version's
+    values, -inf and NaN in place."""
+    u, c, k = 21, 300, 37
+    rng = np.random.default_rng(9)
+    clip_sm = rng.uniform(0.1, 1.0, size=(n, c)).astype(np.float32)
+    clip_sm[:, 5] = 0.0
+    clip_sm[: n // 2, 17] = -0.5
+    clip_sm[:, 40] = 1e-30
+    clip_sm = torch.from_numpy(clip_sm).to(cuda)
+    inds = torch.from_numpy(rng.integers(0, n, size=(u, k)).astype(np.int32)).to(cuda)
+    p_in = torch.ones(k, dtype=torch.float32, device=cuda)
+    got = soft_wpmi_gather_logsum(clip_sm, inds, p_in, min_prob=0.0).cpu().numpy()
+    want = soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in, min_prob=0.0).cpu().numpy()
+    assert np.isneginf(want[:, 5]).all() and np.isnan(want[:, 17]).any()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,bad", [(50, -1), (50, 50), (2500, -1), (2500, 2500)])
+def test_wpmi_kernel_raises_on_an_index_outside_the_rows(cuda, n, bad):
+    clip_sm = torch.full((n, 130), 0.5, device=cuda)
+    inds = torch.zeros((9, 7), dtype=torch.int32, device=cuda)
+    inds[4, 3] = bad
+    with pytest.raises(IndexError):
+        soft_wpmi_gather_logsum(clip_sm, inds, torch.ones(7, device=cuda))
 
 
 def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=4):
@@ -73,6 +124,58 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, tol, k, h, w, cin, cexp):
     assert fused_expand_dw.launches == before + 1
     want = expand_dw_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 380, 228, 40, 240), (5, 190, 114, 64, 384)])
+def test_mbconv_kernel_full_b5_shape(cuda, k, h, w, cin, cexp):
+    """One full-resolution B5 block shape per k (blocks 4-7 and 9-12 at 1520x912)."""
+    args = _mbconv_args(2, h, w, cin, cexp, k, torch.bfloat16, cuda)
+    got = fused_expand_dw(*args)
+    want = expand_dw_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, dict(atol=2e-3, rtol=2e-2)),
+                                       (torch.float32, dict(atol=1e-4, rtol=1e-4))])
+@pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 21, 19, 24, 144), (5, 13, 11, 20, 120),
+                                            (3, 10, 9, 40, 100), (5, 17, 18, 56, 104)])
+def test_mbconv_kernel_odd_widths(cuda, dtype, tol, k, h, w, cin, cexp):
+    """Cin not a multiple of 16 (24, 56) or of 8 (20: element-wise staging), Cexp not
+    a multiple of the 48-channel tile (104, 120) or of 8 (100: element-wise stores)."""
+    args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
+    got = fused_expand_dw(*args)
+    want = expand_dw_plain(*args)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+def _expand_dominant_args(b, h, w, cin, cexp, k, device, seed=6):
+    """bf16 with x and the expand at unit scale, depthwise weights ~1/K^2 and no BN2
+    bias: each output is about the mean of its window's expanded values, so a fault
+    of the expand (a dropped channel chunk, a wrong tail tile) moves it far past the
+    tolerance."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+    def pos(n):
+        return torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(device)
+
+    return (t(b, h, w, cin).to(torch.bfloat16), t(cin, cexp, scale=cin ** -0.5).to(torch.bfloat16),
+            pos(cexp), t(cexp, scale=0.1), ((1.0 + t(k, k, cexp, scale=0.1)) / k ** 2).to(torch.bfloat16),
+            pos(cexp), torch.zeros(cexp, device=device))
+
+
+@pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 38, 29, 40, 240), (5, 19, 17, 64, 384),
+                                            (5, 13, 11, 20, 120), (3, 21, 19, 24, 144),
+                                            (5, 17, 18, 56, 104), (3, 6, 5, 512, 3072)])
+def test_mbconv_kernel_expand_dominates(cuda, k, h, w, cin, cexp):
+    """rtol 2^-7 is one to two bf16 ulps of the output; atol 4e-3 covers two one-ulp
+    flips of the bf16 expanded tensor (weighted ~1/K^2) at outputs near 0."""
+    args = _expand_dominant_args(2, h, w, cin, cexp, k, cuda)
+    got = fused_expand_dw(*args)
+    want = expand_dw_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-3, rtol=2.0 ** -7)
 
 
 def test_resident_dissection_gpu_matches_cpu(cuda, tmp_path):
