@@ -23,7 +23,19 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      weights from a seed and mammogram-shaped synthetic images; the kernels' launch
      counts are zeroed just before and read just after;
   7. end-to-end agreement: the same resident dissection at a small geometry in fp32
-     (TF32 off) on the card (kernels) and on the CPU (plain versions).
+     (TF32 off) on the card (kernels) and on the CPU (plain versions);
+  8. C-Mammo-CLIP Dissect, staged through the disk cache, at full width: the
+     fine-tuned classifier target (B5 at 1520x912, fp32 as in the JAX package, random
+     weights from seed 2, all 39 blocks) dissected by the bf16 BreastClip (12-layer
+     BERT, seed 0), 762 concepts, soft-WPMI, 512 images; kernel 2 launches 32 times a
+     batch in the target's fp32 harvest and 32 in the dissector's bf16 embed, kernel 1
+     in the staged scoring. A second run must find every cache file and skip both
+     harvests. Also kernel 2's fp32 time at each B5 shape at batch 16, with its bound;
+  9. the packed uint8 wire: a 16-image batch packed by the native packer and
+     unpacked on the card must equal the batch; the resident main path on 256 images
+     with the packed and the plain wire (in turns: plain, packed, packed, plain) must
+     write the same top images and >= 0.99 of the top-1 concepts; img/s, wire bytes
+     and the host's packing time per batch of each, and what "auto" decides.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -51,6 +63,8 @@ FP32_FLOPS = 67e12
 
 MAIN_N = 1024          # probe images of the main path
 MAIN_BATCH = 16
+C_DISSECT_N = 512      # probe images of the C-dissect phase
+WIRE_N = 256           # probe images of each run of the packed-wire phase
 IMAGE_HW = (1520, 912)
 POOL = 64              # unique synthetic mammograms, repeated cyclically
 CONCEPTS = os.path.join(ROOT, "mammodissect", "assets", "concepts",
@@ -343,29 +357,43 @@ def phase_mbconv(device):
     return rows
 
 
-def phase_main_path(device):
-    import torch
-
+def flagship_dissector(device):
+    """The bf16 BreastClip dissector at full width (12-layer BERT), seed 0, and the
+    seconds its build took."""
     from mammodissect_torch.dissect.dissectors import get_dissector
-    from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
-    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
-    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
 
-    t0 = time.perf_counter()
-    probe = CyclicProbe(mammo_pool(POOL, *IMAGE_HW, seed=0), MAIN_N)
-    pool_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # toy WordPiece vocab (no vocab.txt in the repo)
         dissector = get_dissector("breastclip", device=device, dtype="bfloat16",
                                   bert_layers=12, seed=0)
-    build_s = time.perf_counter() - t0
-    work = tempfile.mkdtemp(prefix="chip_smoke_")
-    cfg = DissectConfig(target_model="breastclip", clip_model="breastclip",
-                        target_layers=[f"blocks.{i}" for i in range(39)], d_probe="synthetic_mammo",
-                        concept_set=CONCEPTS, batch_size=MAIN_BATCH, similarity_fn="soft_wpmi",
-                        resident=True, device="cuda", activation_dir=os.path.join(work, "acts"),
-                        result_dir=os.path.join(work, "results"))
+    return dissector, time.perf_counter() - t0
+
+
+def resident_cfg(work, device, **kw):
+    """The flagship resident M-dissect configuration (B5, 39 blocks, 762 concepts,
+    soft-WPMI) on `device`; the plain uint8 wire unless `kw` says otherwise."""
+    from mammodissect_torch.dissect.engine import DissectConfig
+
+    args = dict(target_model="breastclip", clip_model="breastclip",
+                target_layers=[f"blocks.{i}" for i in range(39)], d_probe="synthetic_mammo",
+                concept_set=CONCEPTS, batch_size=MAIN_BATCH, similarity_fn="soft_wpmi",
+                resident=True, device=device.type, wire_pack="off",
+                activation_dir=os.path.join(work, "acts"),
+                result_dir=os.path.join(work, "results"))
+    args.update(kw)
+    return DissectConfig(**args)
+
+
+def phase_main_path(device, pool, dissector):
+    import torch
+
+    from mammodissect_torch.dissect.engine import run_dissection
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+
+    probe = CyclicProbe(pool, MAIN_N)
+    cfg = resident_cfg(tempfile.mkdtemp(prefix="chip_smoke_"), device)
     torch.cuda.reset_peak_memory_stats()
     fused_expand_dw.launches = 0
     soft_wpmi_gather_logsum.launches = 0
@@ -384,12 +412,199 @@ def phase_main_path(device):
     check(launches["wpmi"] >= 1, "soft-WPMI kernel never launched on the main path")
     row = {"images": MAIN_N, "batch": MAIN_BATCH, "batches": n_batches, "wall_s": wall,
            "img_per_s": MAIN_N / wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launches, "rows": len(df), "pool_s": pool_s, "model_build_s": build_s}
+           "launches": launches, "rows": len(df)}
     say(f"[main path] {MAIN_N} images at {IMAGE_HW[0]}x{IMAGE_HW[1]}, B5 x 39 blocks, 12-layer "
-        f"BERT, 762 concepts, soft-WPMI, bf16: {wall:.2f} s wall, {row['img_per_s']:.2f} img/s, "
+        f"BERT, 762 concepts, soft-WPMI, bf16, plain wire: {wall:.2f} s wall, "
+        f"{row['img_per_s']:.2f} img/s, "
         f"peak {row['max_memory_allocated_bytes'] / 2**30:.2f} GiB; launches {launches}; "
         f"{len(df)} CSV rows, similarities finite")
     return row
+
+
+def csv_similarities(df):
+    return np.array([json.loads(s) if isinstance(s, str) else s for s in df["similarity"]])
+
+
+def fp32_mbconv_rows(device):
+    """Kernel 2's fp32 instantiation (the classifier target's) at each B5 shape at
+    batch 16: ms, plain ms, max abs err and the bound (bytes at 3.35 TB/s or the
+    expand and depthwise operations at 67 TFLOP/s fp32, TF32 being off)."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
+
+    rows = []
+    for i, (k, h, w, cin, cexp, n_blocks, _) in enumerate(B5_SHAPES):
+        args = _mbconv_args(MAIN_BATCH, h, w, cin, cexp, k, torch.float32, device, seed=30 + i)
+        got = fused_expand_dw(*args)
+        want = expand_dw_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool((err <= 1e-4 + 1e-4 * want.abs()).all()),
+              f"kernel 2 fp32 disagrees at batch {MAIN_BATCH}, k{k} {cin}->{cexp}: "
+              f"max abs err {float(err.max())}")
+        row = {"k": k, "H": h, "W": w, "Cin": cin, "Cexp": cexp, "blocks": n_blocks,
+               "max_abs_err": float(err.max())}
+        del got, want, err
+        row["ms"] = cuda_ms(lambda: fused_expand_dw(*args), reps=3)
+        row["plain_ms"] = cuda_ms(lambda: expand_dw_plain(*args), reps=1)
+        pix = MAIN_BATCH * h * w
+        bytes_ = pix * (cin + cexp) * 4 + (cin * cexp + k * k * cexp) * 4 + 4 * cexp * 4
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = (2 * pix * cin * cexp + 2 * k * k * pix * cexp) / FP32_FLOPS * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rows.append(row)
+        say(f"[kernel 2 fp32] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH}: {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"max abs err {row['max_abs_err']:.3g}")
+        del args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_c_dissect(device, pool, dissector):
+    import torch
+
+    from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+
+    probe = CyclicProbe(pool, C_DISSECT_N)
+    work = tempfile.mkdtemp(prefix="chip_smoke_c_")
+    cfg = DissectConfig(target_model="breastclip_classifier", clip_model="breastclip",
+                        target_layers=[f"blocks.{i}" for i in range(39)],
+                        d_probe="synthetic_mammo", concept_set=CONCEPTS, batch_size=MAIN_BATCH,
+                        similarity_fn="soft_wpmi", resident=False, device=device.type,
+                        target_kwargs={"seed": 2}, activation_dir=os.path.join(work, "acts"),
+                        result_dir=os.path.join(work, "results"))
+    n_batches = -(-C_DISSECT_N // MAIN_BATCH)
+    runs = []
+    for attempt in ("first", "rerun"):
+        torch.cuda.reset_peak_memory_stats()
+        fused_expand_dw.launches = 0
+        soft_wpmi_gather_logsum.launches = 0
+        logs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df, _ = run_dissection(cfg, probe=probe, dissector=dissector, log=logs.append)
+        torch.cuda.synchronize()
+        runs.append({"wall_s": time.perf_counter() - t0, "logs": logs, "df": df,
+                     "launches": {"mbconv": fused_expand_dw.launches,
+                                  "wpmi": soft_wpmi_gather_logsum.launches},
+                     "peak": torch.cuda.max_memory_allocated()})
+    first, rerun = runs
+    sims = csv_similarities(first["df"])
+    check(len(first["df"]) == 6992, f"C-dissect CSV has {len(first['df'])} rows, expected 6992")
+    check(np.isfinite(sims).all(), "non-finite similarities in the C-dissect CSV")
+    check(first["launches"]["mbconv"] == 2 * 32 * n_batches,
+          f"C-dissect: kernel 2 launched {first['launches']['mbconv']} times, expected "
+          f"{2 * 32 * n_batches} (fp32 target harvest + bf16 dissector embed)")
+    check(first["launches"]["wpmi"] >= 1, "C-dissect: kernel 1 never launched")
+    check(any(l.startswith(f"[harvest] {C_DISSECT_N} images x 39 layers") for l in first["logs"]),
+          f"C-dissect did not harvest the target: {first['logs']}")
+    for line in ("[harvest] all target activations cached, skipping",
+                 "[clip-img] probe embeddings cached, skipping"):
+        check(line in rerun["logs"], f"C-dissect rerun did not log {line!r}: {rerun['logs']}")
+    check(rerun["launches"]["mbconv"] == 0,
+          f"C-dissect rerun launched kernel 2 {rerun['launches']['mbconv']} times")
+    check(list(rerun["df"]["description"]) == list(first["df"]["description"])
+          and list(rerun["df"]["images"]) == list(first["df"]["images"])
+          and np.allclose(csv_similarities(rerun["df"]), sims, rtol=1e-6, atol=1e-6),
+          "C-dissect rerun wrote another CSV")
+    fp32 = fp32_mbconv_rows(device)
+    per_forward = {key: sum(r[key] * r["blocks"] for r in fp32) for key in ("ms", "plain_ms", "bound_ms")}
+    row = {"images": C_DISSECT_N, "batch": MAIN_BATCH, "batches": n_batches,
+           "wall_s": first["wall_s"], "img_per_s": C_DISSECT_N / first["wall_s"],
+           "rerun_wall_s": rerun["wall_s"], "max_memory_allocated_bytes": first["peak"],
+           "launches": first["launches"], "rerun_launches": rerun["launches"],
+           "fp32_shapes": fp32, "fp32_forward_ms": per_forward["ms"],
+           "fp32_forward_plain_ms": per_forward["plain_ms"],
+           "fp32_forward_bound_ms": per_forward["bound_ms"],
+           "fp32_max_abs_err": max(r["max_abs_err"] for r in fp32),
+           "stage_logs": [l for l in first["logs"] if l.startswith(("[harvest]", "[clip-"))]}
+    say(f"[c-dissect] {C_DISSECT_N} images at {IMAGE_HW[0]}x{IMAGE_HW[1]}, classifier B5 fp32 x "
+        f"39 blocks + BreastClip bf16 embed, 762 concepts, soft-WPMI, staged: "
+        f"{row['wall_s']:.2f} s wall, {row['img_per_s']:.2f} img/s, peak "
+        f"{row['max_memory_allocated_bytes'] / 2**30:.2f} GiB; launches {row['launches']}; "
+        f"6992 CSV rows, similarities finite; stages {row['stage_logs']}")
+    say(f"[c-dissect] rerun: every cache file found, both harvests skipped, "
+        f"{rerun['wall_s']:.2f} s, launches {rerun['launches']}")
+    say(f"[kernel 2 fp32] one forward's 32 launches at batch {MAIN_BATCH}: "
+        f"{per_forward['ms']:.3f} ms, plain {per_forward['plain_ms']:.3f} ms, bound "
+        f"{per_forward['bound_ms']:.3f} ms")
+    return row
+
+
+def phase_packed_wire(device, pool, dissector):
+    import torch
+
+    from mammodissect_torch.dissect.engine import _decide_wire_pack, run_dissection
+    from mammodissect_torch.dissect.packing import (
+        native_packer,
+        pack_batch_groups_padded,
+        sample_pack_fraction,
+        unpack_canvas_groups,
+    )
+
+    # 1. one batch through the native packer and the card's unpack
+    u8 = np.ascontiguousarray(pool[:MAIN_BATCH])
+    check(native_packer() == "native", "the native span packer did not build")
+    raw = u8.size
+    t0 = time.perf_counter()
+    flat2d, meta, bucket = pack_batch_groups_padded(u8, 1, quantum=raw // 16, cap=raw)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    flat_dev, meta_dev = torch.from_numpy(flat2d).to(device), torch.from_numpy(meta).to(device)
+    canvas = unpack_canvas_groups(flat_dev, meta_dev, u8.shape)
+    check(bool(torch.equal(canvas.cpu(), torch.from_numpy(u8))),
+          "the canvas unpacked on the card differs from the batch")
+    unpack_ms = cuda_ms(lambda: unpack_canvas_groups(flat_dev, meta_dev, u8.shape), reps=10)
+    del canvas
+    say(f"[wire] one batch of {MAIN_BATCH}: native packer, {raw} raw -> {bucket + meta.nbytes} "
+        f"wire bytes ({(bucket + meta.nbytes) / raw:.4f}), packed in {pack_ms:.2f} ms on the host, "
+        f"unpacked bit-identical on the card in {unpack_ms:.3f} ms")
+
+    # 2. the resident main path, plain and packed wire in turns
+    probe = CyclicProbe(pool, WIRE_N)
+    runs = []
+    for wire in ("off", "on", "on", "off"):
+        cfg = resident_cfg(tempfile.mkdtemp(prefix=f"chip_smoke_wire_{wire}_"), device,
+                           wire_pack=wire)
+        timing, logs = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df, _ = run_dissection(cfg, probe=probe, dissector=dissector, log=logs.append,
+                               timing=timing)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        packer = [l for l in logs if "packed uint8 wire" in l]
+        check(packer == (["[resident] packed uint8 wire (native packer)"] if wire == "on" else []),
+              f"wire {wire}: unexpected packer log {packer}")
+        runs.append({"wire": wire, "df": df, "wall_s": wall, "img_per_s": WIRE_N / wall,
+                     "wire_bytes_per_batch": float(np.mean([t["wire_bytes"] for t in timing])),
+                     "pack_ms_per_batch": float(np.mean([t["pack_s"] for t in timing])) * 1e3,
+                     "put_ms_per_batch": float(np.mean([t["put_s"] for t in timing])) * 1e3})
+    plain, packed = runs[0]["df"], runs[1]["df"]
+    top = [[row[0] for row in d["description"]] for d in (plain, packed)]
+    agree = float(np.mean([a == b for a, b in zip(*top)]))
+    exact = float(np.mean([a == b for a, b in zip(plain.itertuples(index=False),
+                                                   packed.itertuples(index=False))]))
+    check(list(plain["images"]) == list(packed["images"]),
+          "packed and plain wire wrote other top images")
+    check(agree >= 0.99, f"packed vs plain wire: top-1 agreement {agree} < 0.99")
+    fraction = sample_pack_fraction(probe)
+    auto = _decide_wire_pack("auto", probe)
+    for r in runs:
+        say(f"[wire] {r['wire']:>3}: {r['img_per_s']:.2f} img/s ({WIRE_N} images), "
+            f"{r['wire_bytes_per_batch']:.0f} wire bytes a batch, host packing "
+            f"{r['pack_ms_per_batch']:.2f} ms a batch, enqueue of the copy "
+            f"{r['put_ms_per_batch']:.3f} ms a batch")
+    say(f"[wire] packed vs plain: identical top images, top-1 agreement {agree:.4f}, rows "
+        f"identical {exact:.4f}; sampled packed fraction {fraction:.4f}, 'auto' packs: {auto}")
+    return {"pack_ms": pack_ms, "unpack_ms": unpack_ms, "bucket": bucket,
+            "runs": [{k: v for k, v in r.items() if k != "df"} for r in runs],
+            "top1_agreement": agree, "rows_identical": exact,
+            "sampled_fraction": fraction, "auto_packs": auto}
 
 
 def phase_agreement():
@@ -445,8 +660,15 @@ def main():
     mbconv = phase_mbconv(device)
     say("[library] library_ms n/a for both kernels: no single PyTorch call computes "
         "either fused function")
-    main_path = phase_main_path(device)
+    t0 = time.perf_counter()
+    pool = mammo_pool(POOL, *IMAGE_HW, seed=0)
+    dissector, dissector_s = flagship_dissector(device)
+    say(f"[setup] pool of {POOL} images {time.perf_counter() - t0 - dissector_s:.2f} s, "
+        f"dissector {dissector_s:.2f} s")
+    main_path = phase_main_path(device, pool, dissector)
     agreement = phase_agreement()
+    c_dissect = phase_c_dissect(device, pool, dissector)
+    wire = phase_packed_wire(device, pool, dissector)
 
     per_forward = lambda key: sum(r[key] * r["blocks"] for r in mbconv)  # noqa: E731
     t_bytes_share = sum(r["bound_ms"] * r["blocks"] for r in mbconv if r["bound_by"] == "bytes")
@@ -454,7 +676,8 @@ def main():
         {"name": "soft_wpmi_gather_logsum", "route": "cuda",
          "source": "mammodissect_torch/csrc/wpmi_gather_logsum.cu",
          "replaces": "mammodissect/ops/pallas_wpmi.py:81",
-         "launches": main_path["launches"]["wpmi"], "max_abs_err": wpmi["max_abs_err"],
+         "launches": main_path["launches"]["wpmi"],
+         "launches_c_dissect": c_dissect["launches"]["wpmi"], "max_abs_err": wpmi["max_abs_err"],
          # ms and wrapper_ms: through the wrapper (the first version's span); launch_ms: alone
          "ms": wpmi["ms"], "wrapper_ms": wpmi["ms"], "launch_ms": wpmi["launch_ms"],
          "plain_ms": wpmi["plain_ms"], "bound_ms": wpmi["bound_ms"],
@@ -463,18 +686,25 @@ def main():
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
          "launches": main_path["launches"]["mbconv"],
+         "launches_c_dissect": c_dissect["launches"]["mbconv"],
          "max_abs_err": max(r["max_abs_err_bf16"] for r in mbconv),
          # one forward's 32 launches at the main path's batch
          "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
          "bound_ms": per_forward("bound_ms"),
          "bound_by": "bytes" if t_bytes_share * 2 >= per_forward("bound_ms") else "operations",
-         "library_ms": None},
+         "library_ms": None,
+         # the fp32 instantiation (the C-dissect target's), one forward at batch 16
+         "fp32_ms": c_dissect["fp32_forward_ms"], "fp32_plain_ms": c_dissect["fp32_forward_plain_ms"],
+         "fp32_bound_ms": c_dissect["fp32_forward_bound_ms"],
+         "fp32_max_abs_err": c_dissect["fp32_max_abs_err"]},
     ]
     say(f"[kernel 2] one forward's 32 launches at batch {MAIN_BATCH}, bf16: "
         f"{per_forward('ms'):.3f} ms (first version {FIRST_VERSION_MS['mbconv_forward']} ms), "
         f"bound {per_forward('bound_ms'):.3f} ms")
     say(f"[done] torch {torch.__version__}, CUDA {torch.version.cuda}, build {build_s:.2f} s, "
-        f"agreement {agreement['top1_agreement']:.4f}, total {time.perf_counter() - t_start:.1f} s")
+        f"agreement {agreement['top1_agreement']:.4f}, C-dissect {c_dissect['img_per_s']:.2f} img/s, "
+        f"wire off/on/on/off {[round(r['img_per_s'], 2) for r in wire['runs']]} img/s, "
+        f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,12 @@ The resident M-Mammo-CLIP dissection on the GPU:
     --clip_model breastclip --target_layers blocks.0,blocks.1,...,blocks.38 --resident \
     --d_probe csv:probe.csv --result_dir results --activation_dir saved_activations
 
+C-Mammo-CLIP Dissect of a fine-tuned classifier, staged through the disk cache:
+  python -m mammodissect_torch.cli.dissect --target_model breastclip_classifier \
+    --finetuned_img_classifier_chkpt model.pth --clip_model breastclip ...
+
 `--device` defaults to cuda and raises without a GPU; `--device cpu` runs on the CPU.
-Only the resident path and the plain uint8 wire (`--wire_pack off`) are ported.
+Targets: breastclip, breastclip_classifier, tiny_cnn; dissectors: breastclip, random.
 """
 from __future__ import annotations
 
@@ -27,9 +31,10 @@ CONCEPT_SET = (Path(__file__).resolve().parents[2] / "mammodissect" / "assets" /
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Mammo-CLIP Dissect (PyTorch, CUDA)")
     p.add_argument("--clip_model", type=str, default="breastclip",
-                   help="dissector: breastclip (the only one ported so far)")
+                   help="dissector: breastclip | random (the CLIP dissectors are not "
+                        "ported yet)")
     p.add_argument("--target_model", type=str, default="breastclip",
-                   help="target model: breastclip (the only one ported so far)")
+                   help="target model: breastclip | breastclip_classifier | tiny_cnn")
     p.add_argument("--target_layers", type=str, default="blocks.0",
                    help="comma-separated; reference spellings like "
                         "'image_encoder._blocks[17]' are accepted")
@@ -66,9 +71,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deadline_s", type=float, default=None,
                    help="wall-clock budget of a --resident run: stop the harvest at a "
                         "batch boundary, score what was harvested, resume next time")
-    p.add_argument("--wire_pack", choices=("off",), default="off",
-                   help="host-to-device wire of the --resident harvest: only the plain "
-                        "uint8 batch ('off') is ported")
+    p.add_argument("--wire_pack", choices=("auto", "on", "off"), default="off",
+                   help="host-to-device wire of the --resident harvest: 'on' sends each "
+                        "row's nonzero span (mammograms are ~40-60%% black background), "
+                        "'auto' does when a seeded sample of 16 probe images packs to "
+                        "<= 0.85 of the raw bytes, 'off' (default; measured on the H100, "
+                        "PERF.md) sends the plain uint8 batch; results are equal")
     p.add_argument("--naming", choices=("generated", "og"), default="generated",
                    help="'og' writes CSV/args files under describe_og_neurons.py's "
                         "hardcoded name matrix")

@@ -7,10 +7,15 @@
   Linear [out, in], BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
   running_var, LayerNorm scale/bias -> weight/bias. It lets a test run the same
   weights through both packages.
+- `classifier_from_jax(variables)`: the JAX package's BreastClipClassifierModule
+  variables -> the port's classifier state dict (`image_encoder.*`, `classifier.fc.*`).
 - `load_breastclip_checkpoint(path, module)`: a reference Mammo-CLIP `.tar`
   ({"model": state_dict, "config": ...}) into a BreastClipModule. The names already
   match; the loader strips DDP's `module.` prefix and maps the text tower's
   `text_encoder.bert.` / `text_encoder.model.` prefix to `text_encoder.`.
+- `load_classifier_checkpoint(path, module)`: the image encoder (and the linear
+  head, when the file has one) of a Mammo-CLIP `.tar` or a fine-tuned classifier
+  `.pth` into a BreastClipClassifierModule, non-strict as the reference loads it.
 """
 from __future__ import annotations
 
@@ -115,6 +120,35 @@ def breastclip_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def classifier_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX BreastClipClassifierModule variables {"params", "batch_stats"} (numpy
+    leaves) -> state dict of the port's BreastClipClassifierModule."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = efficientnet_from_jax(params["image_encoder"]["backbone"],
+                               stats["image_encoder"]["backbone"], prefix="image_encoder.")
+    _linear(sd, "classifier.fc", params["classifier"]["fc"])
+    return sd
+
+
+def torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a torch checkpoint file: `{"model": sd, ...}` or a bare
+    state dict, without DDP's `module.` prefix."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    sd = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    if sd and all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def _load_non_strict(module: torch.nn.Module, sd: Mapping, log) -> None:
+    result = module.load_state_dict(sd, strict=False)
+    if result.missing_keys or result.unexpected_keys:
+        log(f"[convert] {len(result.missing_keys)} missing, {len(result.unexpected_keys)} "
+            f"unexpected entries (strict=False): "
+            f"{(result.missing_keys + result.unexpected_keys)[:5]}...")
+
+
 _TEXT_PREFIXES = ("text_encoder.bert.", "text_encoder.model.")
 _KEPT_PREFIXES = ("image_encoder.", "text_encoder.", "image_projection.", "text_projection.",
                   "logit_scale")
@@ -123,20 +157,30 @@ _KEPT_PREFIXES = ("image_encoder.", "text_encoder.", "image_projection.", "text_
 def load_breastclip_checkpoint(path: str, module: torch.nn.Module, log=print) -> None:
     """Load a reference Mammo-CLIP checkpoint into `module` (strict=False, as the
     reference loads it: matching names load, the rest is reported)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
-    if sd and all(k.startswith("module.") for k in sd):
-        sd = {k[len("module."):]: v for k, v in sd.items()}
     mapped = {}
-    for k, v in sd.items():
+    for k, v in torch_state_dict(path).items():
         for pre in _TEXT_PREFIXES:
             if k.startswith(pre):
                 k = "text_encoder." + k[len(pre):]
                 break
         if k.startswith(_KEPT_PREFIXES):
             mapped[k] = v
-    result = module.load_state_dict(mapped, strict=False)
-    if result.missing_keys or result.unexpected_keys:
-        log(f"[convert] {len(result.missing_keys)} missing, {len(result.unexpected_keys)} "
-            f"unexpected entries (strict=False): "
-            f"{(result.missing_keys + result.unexpected_keys)[:5]}...")
+    _load_non_strict(module, mapped, log)
+
+
+def load_image_encoder_checkpoint(path: str, encoder: torch.nn.Module, log=print) -> None:
+    """Load the `image_encoder.*` entries of a Mammo-CLIP checkpoint into an
+    EfficientNetMammo (the `breastclip` target), strict=False."""
+    sd = {k[len("image_encoder."):]: v for k, v in torch_state_dict(path).items()
+          if k.startswith("image_encoder.")}
+    _load_non_strict(encoder, sd, log)
+
+
+def load_classifier_checkpoint(path: str, module: torch.nn.Module, log=print) -> None:
+    """Load the `image_encoder.*` and `classifier.fc.*` entries of a torch checkpoint
+    (a Mammo-CLIP `.tar`: the encoder; a fine-tuned classifier `.pth`: both) into a
+    BreastClipClassifierModule, strict=False (`Classifiers/` fine-tuned checkpoints,
+    `targets.py:316-338` of the JAX package)."""
+    sd = {k: v for k, v in torch_state_dict(path).items()
+          if k.startswith(("image_encoder.", "classifier.fc."))}
+    _load_non_strict(module, sd, log)

@@ -1,5 +1,5 @@
 """Probe datasets, the D_probe side of dissection (the part of
-`mammodissect/data/probes.py` the resident path needs, copied).
+`mammodissect/data/probes.py` the dissection paths need, copied).
 
 Every probe has a static `image_shape` (H, W, C), `len()` and `image(i)` -> HWC
 float32; the resident path reads `image_u8(i)` -> HWC uint8 and normalizes on the
@@ -9,13 +9,15 @@ Probe specs (`get_probe`):
   synthetic       deterministic random float probe
   synthetic_u8    uint8 probe with the mammography normalization constants
   folder:<path>   directory of images
+  txt:<file>      `path label` list file
   csv:<file>      CSV with an image-path column, 1520x912 grayscale by default
+  combined:<a>+<b>  concatenation
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -105,6 +107,39 @@ class FolderProbe(Probe):
         return self._class_ids[os.path.basename(os.path.dirname(self.paths[i]))]
 
 
+class TxtListProbe(Probe):
+    """`path label`-per-line list file (reference `CustomImageDatasetFromTxt`,
+    `data/Imagenet_custom_dataloader.py:5-37`), paths relative to `root`."""
+
+    def __init__(self, list_file: str, root: str = "", preprocess=None,
+                 image_shape: tuple = (224, 224, 3), grayscale: bool = False):
+        self.image_shape = tuple(image_shape)
+        if preprocess is None:
+            preprocess = (T.imagenet_preprocess if self.image_shape == (224, 224, 3)
+                          else _default_folder_preprocess(self.image_shape))
+        self.preprocess = preprocess
+        self.grayscale = grayscale
+        self.entries: List[tuple] = []
+        with open(list_file) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                parts = line.split()
+                path = os.path.join(root, parts[0]) if root else parts[0]
+                lab = int(parts[1]) if len(parts) > 1 else -1
+                self.entries.append((path, lab))
+
+    def __len__(self):
+        return len(self.entries)
+
+    def image(self, i):
+        return self.preprocess(T.load_image(self.entries[i][0], self.grayscale))
+
+    def label(self, i):
+        return self.entries[i][1]
+
+
 class CsvProbe(Probe):
     """CSV-driven mammography probe (vindr / csaw / embed families): an image-path
     column plus optional label columns; 1520x912 grayscale min-max mean/std
@@ -153,6 +188,34 @@ class CsvProbe(Probe):
         return None if self.label_col is None else self.df.iloc[i][self.label_col]
 
 
+class ConcatProbe(Probe):
+    """Sequential concatenation (reference `combined` probe, `data_utils.py:159-167`).
+    All members must share image_shape."""
+
+    def __init__(self, probes: Sequence[Probe]):
+        shapes = {p.image_shape for p in probes}
+        if len(shapes) != 1:
+            raise ValueError(f"combined probes must share image_shape, got {shapes}")
+        self.probes = list(probes)
+        self.image_shape = probes[0].image_shape
+        self._offsets = np.cumsum([0] + [len(p) for p in probes])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def _locate(self, i):
+        j = int(np.searchsorted(self._offsets, i, side="right")) - 1
+        return self.probes[j], i - int(self._offsets[j])
+
+    def image(self, i):
+        p, k = self._locate(i)
+        return p.image(k)
+
+    def label(self, i):
+        p, k = self._locate(i)
+        return p.label(k)
+
+
 def synthetic_probe(n: int = 64, h: int = 64, w: int = 64, c: int = 1, seed: int = 0) -> ArrayProbe:
     """Deterministic random float probe (tests)."""
     rng = np.random.default_rng(seed)
@@ -163,6 +226,8 @@ def synthetic_probe(n: int = 64, h: int = 64, w: int = 64, c: int = 1, seed: int
 
 def get_probe(spec: str, **kw) -> Probe:
     """Resolve a probe spec string (reference `get_data`, `data_utils.py:102-311`)."""
+    if spec.startswith("combined:"):
+        return ConcatProbe([get_probe(p, **kw) for p in spec[len("combined:"):].split("+")])
     if spec == "synthetic":
         return synthetic_probe(**{k: v for k, v in kw.items() if k in ("n", "h", "w", "c", "seed")})
     if spec == "synthetic_u8":
@@ -179,12 +244,16 @@ def get_probe(spec: str, **kw) -> Probe:
         grayscale = bool(kw.get("grayscale", shape[-1] == 1))
         preprocess = kw.get("preprocess") or _default_folder_preprocess(shape)
         return FolderProbe(spec[len("folder:"):], preprocess, shape, grayscale=grayscale)
+    if spec.startswith("txt:"):
+        return TxtListProbe(spec[len("txt:"):], root=kw.get("root", ""),
+                            preprocess=kw.get("preprocess"),
+                            image_shape=kw.get("image_shape", (224, 224, 3)))
     if spec.startswith("csv:"):
         return CsvProbe(spec[len("csv:"):], **{k: v for k, v in kw.items() if k in (
             "image_col", "root", "label_col", "split_col", "split", "size_hw", "mean",
             "std", "filters")})
     raise KeyError(f"unknown probe spec {spec!r} (ported: synthetic, synthetic_u8, "
-                   "folder:<path>, csv:<file>)")
+                   "folder:<path>, txt:<file>, csv:<file>, combined:<a>+<b>)")
 
 
 def _default_folder_preprocess(shape: tuple):

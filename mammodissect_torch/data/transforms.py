@@ -51,6 +51,25 @@ def resize(arr: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
     return np.stack(chans, axis=-1)
 
 
+def center_crop(arr: np.ndarray, size: int) -> np.ndarray:
+    h, w = arr.shape[:2]
+    top = max((h - size) // 2, 0)
+    left = max((w - size) // 2, 0)
+    return arr[top: top + size, left: left + size]
+
+
+def imagenet_preprocess(arr: np.ndarray, size: int = 224) -> np.ndarray:
+    """torchvision-style eval pipeline: resize the short side to 256, center crop,
+    ImageNet normalization (`concept_vit/data_utils.py:106-113`)."""
+    if arr.shape[-1] == 1:
+        arr = np.repeat(arr, 3, axis=-1)
+    h, w = arr.shape[:2]
+    scale = 256 / min(h, w)
+    arr = resize(arr, (round(h * scale), round(w * scale)))
+    arr = center_crop(arr, size)
+    return ((arr - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+
+
 def minmax_meanstd(arr: np.ndarray, mean: float, std: float) -> np.ndarray:
     """Scale to [0, 1] by min-max, then standardize; a constant image maps to 0."""
     lo, hi = float(arr.min()), float(arr.max())

@@ -1,4 +1,4 @@
-"""Device resolution and the float32 precision policy of the entry points."""
+"""Device and dtype resolution and the float32 precision policy of the entry points."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +18,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "mammodissect_torch runs on a CUDA GPU by default, and none is available; "
             "pass device='cpu' (CLI: --device cpu) to run on the CPU")
     return dev
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a dtype, its name ("bfloat16") or None (float32)."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    resolved = getattr(torch, str(dtype), None)
+    if not isinstance(resolved, torch.dtype):
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return resolved
 
 
 def set_fp32_policy() -> None:

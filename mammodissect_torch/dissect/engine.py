@@ -1,19 +1,29 @@
-"""Dissection engine, device-resident fused M-dissect (counterpart of the resident path
-of `mammodissect/dissect/engine.py`).
+"""Dissection engine: harvest, cache, score (counterpart of
+`mammodissect/dissect/engine.py`, single process).
 
-When the dissection target is the dissector's own image tower (BreastClip dissecting
-its EfficientNet `_blocks`), one forward per probe batch yields both the pooled
-activations of every requested block and the projected probe embedding. They are
-written into fixed-capacity accumulators that stay on the device; completed chunks
-spill to the activation cache on a background thread so an interrupted run resumes.
-Scoring then runs on the device too (`score_resident`), and only CSV-sized results
-come back to the host.
+Two paths write the same CSV.
 
-Per batch, the only host-to-device traffic is the uint8 batch: assembled by a
-prefetch thread into pinned memory and copied with `non_blocking=True`.
+Resident (fused M-dissect, `DissectConfig.resident`): when the dissection target is
+the dissector's own image tower (BreastClip dissecting its EfficientNet `_blocks`),
+one forward per probe batch yields both the pooled activations of every requested
+block and the projected probe embedding. They are written into fixed-capacity
+accumulators that stay on the device; completed chunks spill to the activation
+cache on a background thread so an interrupted run resumes. Scoring runs on the
+device too (`score_resident`), and only CSV-sized results come back to the host.
+Per batch, the only host-to-device traffic is the uint8 batch, assembled by a
+prefetch thread into pinned memory and copied with `non_blocking=True`: the plain
+canvas, or with the packed wire (`dissect/packing.py`) each row's nonzero span.
+Any other target or a probe without uint8 images falls back to the staged path.
 
-The staged (disk-cache) path, the packed uint8 wire and the other targets are not
-ported yet; asking for them raises.
+Staged (disk cache, the reference's design, `concept_vit/utils.py`):
+  1. pooled activations of the target's layers over D_probe   -> .npy per layer
+  2. the dissector's image embeddings of D_probe              -> .npy
+  3. the dissector's text embeddings of the concept set       -> .npy
+  4. clip_feats = image @ text.T, every layer scored in one call, top concepts and
+     top images on the host
+with the reference's cache names (`get_save_names`, `utils.py:54-62`) and
+skip-if-exists, so an interrupted run resumes. When target and dissector are the
+same BreastClip, stages 1 and 2 are one fused pass (`_fused_harvest_embed`).
 """
 from __future__ import annotations
 
@@ -24,17 +34,26 @@ import queue
 import threading
 import time
 import uuid
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mammodissect_torch.data.loader import iter_batches
 from mammodissect_torch.data.probes import get_probe
 from mammodissect_torch.device import resolve_device, set_fp32_policy
 from mammodissect_torch.dissect.capture import canonical_layer_name
 from mammodissect_torch.dissect.dissectors import get_dissector
+from mammodissect_torch.dissect.packing import (
+    native_packer,
+    pack_batch_groups_padded,
+    sample_pack_fraction,
+)
 from mammodissect_torch.dissect.results import write_results
+from mammodissect_torch.dissect.targets import get_target_model
+from mammodissect_torch.ops.pooling import PM_SUFFIX
 from mammodissect_torch.ops.similarity import SEGMENTED_FNS, get_similarity_fn
 from mammodissect_torch.ops.topk import topk_lowest_index
 
@@ -42,8 +61,8 @@ from mammodissect_torch.ops.topk import topk_lowest_index
 @dataclass
 class DissectConfig:
     """Flag surface of `describe_broad_neurons.py:15-49`, typed (the JAX package's
-    DissectConfig plus `device`; target and dissector default to breastclip, the
-    only ones ported so far)."""
+    DissectConfig plus `device`; target and dissector default to breastclip, and the
+    wire to the plain uint8 batch, the H100's choice, PERF.md)."""
 
     target_model: str = "breastclip"
     target_layers: List[str] = field(default_factory=lambda: ["blocks.0"])
@@ -65,13 +84,18 @@ class DissectConfig:
     probe_kwargs: dict = field(default_factory=dict)
     target_kwargs: dict = field(default_factory=dict)
     dissector_kwargs: dict = field(default_factory=dict)
-    # device-resident fused M-dissect (the only path ported so far)
+    # device-resident fused M-dissect: accumulate and score on the device, completed
+    # chunks spill to the activation cache; falls back to the staged path when the
+    # target is not the dissector's own image tower
     resident: bool = False
     # wall-clock budget (seconds) of a resident run: the harvest stops at a batch
     # boundary, the CSV covers the images harvested so far, a rerun resumes
     deadline_s: Optional[float] = None
     naming: str = "generated"  # "generated" | "og" (results.py)
-    wire_pack: str = "off"  # only the plain uint8 wire is ported
+    # host-to-device wire of the resident harvest (dissect/packing.py): "on" sends each
+    # row's nonzero span, "auto" does when a sample of the probe packs to <= 0.85 of
+    # the raw bytes, "off" sends the plain uint8 batch. Lossless: results are equal.
+    wire_pack: str = "off"
     device: str = "cuda"  # "cpu" is the only way onto the CPU
 
 
@@ -89,9 +113,135 @@ def _atomic_write(path: str, writer) -> None:
         raise
 
 
+def _atomic_np_save(path: str, arr) -> None:
+    _atomic_write(path, lambda f: np.save(f, arr))
+
+
 def read_concepts(concept_set: str) -> List[str]:
     with open(concept_set) as f:
         return [w for w in f.read().split("\n") if w.strip()]
+
+
+def get_save_names(clip_name: str, target_name: str, target_layer: str, d_probe: str,
+                   concept_set: str, pool_mode: str, save_dir: str, prefix: str = ""):
+    """Cache-file names, the reference's scheme (`utils.py:54-62`) with the
+    experiment prefix the drivers prepend (`describe_broad_neurons.py:90-92`):
+    (target activations, dissector image embeddings, concept text embeddings)."""
+    layer = canonical_layer_name(target_layer)
+    suffix = PM_SUFFIX[pool_mode]
+    # probe specs may embed paths ("folder:/data/probe"); flatten for file names
+    d_probe = d_probe.replace("/", "_").replace(":", "_")
+    target = f"{save_dir}/{prefix}{d_probe}_{target_name}_{layer}{suffix}.npy"
+    clip = f"{save_dir}/{prefix}{d_probe}_{clip_name.replace('/', '')}.npy"
+    stem = os.path.splitext(os.path.basename(concept_set))[0]
+    text = f"{save_dir}/{prefix}{stem}_{clip_name.replace('/', '')}.npy"
+    return target, clip, text
+
+
+def _all_saved(paths: Sequence[str]) -> bool:
+    return all(os.path.exists(p) for p in paths)
+
+
+def _has_u8(probe) -> bool:
+    """Whether the probe gives uint8 images and their normalization constants."""
+    if not (hasattr(probe, "image_u8") and hasattr(probe, "mean")):
+        return False
+    try:
+        probe.image_u8(0)
+    except (AttributeError, NotImplementedError):
+        return False
+    return True
+
+
+def _dissector_kwargs(cfg) -> dict:
+    dk = dict(cfg.dissector_kwargs)
+    if cfg.clip_model.startswith("breastclip"):
+        # the dissector loads the same Mammo-CLIP checkpoint (`utils.py:451-454`)
+        dk.setdefault("ckpt_path", cfg.breast_clip_ckpt)
+    dk.setdefault("device", cfg.device)
+    return dk
+
+
+def save_activations(cfg, probe=None, target=None, dissector=None,
+                     log=print) -> Dict[str, str]:
+    """Stages 1-3: fill the activation cache (`utils.save_activations`,
+    `concept_vit/utils.py:430-564`). Returns {kind: path}: "clip", "text" and
+    "target:<layer>" for each layer. A file that exists is not computed again."""
+    os.makedirs(cfg.activation_dir, exist_ok=True)
+    if probe is None:
+        probe = get_probe(cfg.d_probe, **cfg.probe_kwargs)
+    layers = [canonical_layer_name(l) for l in cfg.target_layers]
+    bs = cfg.batch_size
+    paths: Dict[str, str] = {}
+    target_paths = {}
+    for layer in layers:
+        t, c, x = get_save_names(cfg.clip_model, cfg.target_model, layer, cfg.d_probe,
+                                 cfg.concept_set, cfg.pool_mode, cfg.activation_dir,
+                                 cfg.save_prefix)
+        target_paths[layer] = t
+        paths["clip"], paths["text"] = c, x
+    paths.update({f"target:{k}": v for k, v in target_paths.items()})
+    missing_layers = [l for l in layers if not os.path.exists(target_paths[l])]
+    clip_missing = not os.path.exists(paths["clip"])
+
+    # fused M-dissect: the target IS the dissector's image tower, so one forward per
+    # batch gives the activations and the probe embeddings (half the compute and
+    # half the host-to-device bytes of stages 1 and 2). Another target, target
+    # kwargs or a fine-tuned checkpoint go to the separate stages.
+    if ((missing_layers or clip_missing) and cfg.target_model == "breastclip"
+            and cfg.clip_model == "breastclip" and not cfg.target_kwargs
+            and not cfg.finetuned_ckpt and target is None and _has_u8(probe)):
+        dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+        t0 = time.time()
+        acc, embs, n_images = _fused_harvest_embed(dissector, probe, layers, cfg.pool_mode, bs)
+        for l in layers:
+            _atomic_np_save(target_paths[l], acc[l])
+        _atomic_np_save(paths["clip"], embs)
+        missing_layers, clip_missing = [], False
+        log(f"[fused] harvested {len(layers)} layers + embedded {n_images} images in one "
+            f"pass, {time.time() - t0:.1f}s")
+
+    # stage 1: the target's activations, every layer from one forward per batch
+    if missing_layers:
+        if target is None:
+            kw = dict(ckpt_path=cfg.breast_clip_ckpt, finetuned_ckpt=cfg.finetuned_ckpt,
+                      num_class=cfg.num_class, device=cfg.device)
+            kw.update(cfg.target_kwargs)
+            target = get_target_model(cfg.target_model, **kw)
+        t0 = time.time()
+        acc, n_images = harvest_probe(target, probe, layers, cfg.pool_mode, bs)
+        for l in layers:
+            _atomic_np_save(target_paths[l], acc[l])
+        log(f"[harvest] {n_images} images x {len(layers)} layers in {time.time() - t0:.1f}s")
+    elif _all_saved(list(target_paths.values())):
+        log("[harvest] all target activations cached, skipping")
+
+    # stage 2: the dissector's probe embeddings
+    if clip_missing:
+        dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+        t0 = time.time()
+        use_u8 = hasattr(dissector, "embed_images_u8") and _has_u8(probe)
+        feats = []
+        if use_u8:
+            pin = getattr(dissector, "device", torch.device("cpu")).type == "cuda"
+            for u8, n_valid in _prefetch_u8_batches(probe, bs, pin=pin):
+                feats.append(dissector.embed_images_u8(u8, probe.mean, probe.std)[:n_valid])
+        else:
+            for batch in iter_batches(probe, bs):
+                feats.append(dissector.embed_images(batch.images)[:batch.n_valid])
+        _atomic_np_save(paths["clip"], np.concatenate(feats, axis=0))
+        log(f"[clip-img] embedded D_probe in {time.time() - t0:.1f}s"
+            + (" (uint8 wire)" if use_u8 else ""))
+    else:
+        log("[clip-img] probe embeddings cached, skipping")
+
+    # stage 3: the concepts' text embeddings
+    if not os.path.exists(paths["text"]):
+        dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+        words = read_concepts(cfg.concept_set)
+        _atomic_np_save(paths["text"], dissector.embed_texts(words))
+        log(f"[clip-txt] embedded {len(words)} concepts")
+    return paths
 
 
 def _prefetch(assemble: Callable, n: int, batch_size: int, start: int, depth: int = 2):
@@ -151,6 +301,134 @@ def _prefetch_u8_batches(probe, batch_size: int, start: int = 0, pin: bool = Fal
         return u8, stop - start_
 
     yield from _prefetch(assemble, len(probe), batch_size, start)
+
+
+def _prefetch_packed_batches(probe, batch_size: int, quantum: int, cap_bytes: int,
+                             start: int = 0, pin: bool = False):
+    """Packed-wire batches (dissect/packing.py): the producer thread assembles the
+    uint8 batch, scans its row spans and packs them into a [1, bucket] payload in
+    pinned memory when `pin`, with the [B, H, 2] int32 span metadata. Yields
+    (payload, meta, n_valid, pack_s), pack_s the host's packing seconds."""
+    h, w, c = probe.image_shape
+    use_spans = hasattr(probe, "image_spans")
+    zero_span = (np.zeros(h, np.int32), np.zeros(h, np.int32))
+
+    def assemble(start_, stop):
+        u8 = np.zeros((batch_size, h, w, c), np.uint8)
+        spans = [] if use_spans else None
+        for j, i in enumerate(range(start_, stop)):
+            u8[j] = probe.image_u8(i)
+            if use_spans:
+                spans.append(probe.image_spans(i))
+        if use_spans:  # tail padding rows are all zero: empty spans, no rescan
+            spans.extend(zero_span for _ in range(stop - start_, batch_size))
+        t0 = time.perf_counter()
+        held = []
+
+        def alloc(shape):
+            held.append(torch.zeros(shape, dtype=torch.uint8, pin_memory=pin))
+            return held[-1].numpy()
+
+        _, meta, _ = pack_batch_groups_padded(u8, 1, spans=spans, quantum=quantum,
+                                              cap=cap_bytes, alloc=alloc)
+        meta_t = torch.from_numpy(meta)
+        if pin:
+            meta_t = meta_t.pin_memory()
+        return held[0], meta_t, stop - start_, time.perf_counter() - t0
+
+    yield from _prefetch(assemble, len(probe), batch_size, start)
+
+
+def _decide_wire_pack(wire_pack: str, probe) -> bool:
+    """Resolve "auto"/"on"/"off" against the probe's sampled packed fraction."""
+    if wire_pack not in ("auto", "on", "off"):
+        raise ValueError(f"wire_pack must be 'auto', 'on' or 'off', got {wire_pack!r}")
+    if wire_pack == "off" or not _has_u8(probe):
+        return False
+    return wire_pack == "on" or sample_pack_fraction(probe) <= 0.85
+
+
+def _pipelined(batches, dispatch, drain, depth: int) -> int:
+    """Queue `dispatch(item)` for each batch while at most `depth` dispatched batches
+    wait to be read by `drain(result, n_valid)`: the device works on the next batches
+    while the host reads an earlier one. Returns the count of valid images."""
+    pending: deque = deque()
+    n_images = 0
+    try:
+        for item, n_valid in batches:
+            pending.append((dispatch(item), n_valid))
+            n_images += n_valid
+            if len(pending) > depth:
+                drain(*pending.popleft())
+        while pending:
+            drain(*pending.popleft())
+    finally:
+        batches.close()
+    return n_images
+
+
+def _split_columns(acc: Dict[str, list], packed: torch.Tensor, n_valid: int, names, widths):
+    """Append the valid rows of each layer's columns of a [B, U_total] device result
+    to acc[layer] as numpy."""
+    packed = packed.cpu().numpy()
+    off = 0
+    for name, w in zip(names, widths):
+        acc[name].append(packed[:n_valid, off:off + w])
+        off += w
+
+
+def harvest_probe(target, probe, layers, pool_mode: str, batch_size: int,
+                  pipeline_depth: int = 2):
+    """Pooled activations of `layers` over the whole probe (stage 1).
+
+    A probe with uint8 images and a target that normalizes on the device take the
+    uint8 wire (4x fewer bytes than float32), from pinned memory, with up to
+    `pipeline_depth` batches queued on the device ahead of the one the host reads.
+    Other probes go through float32 batches (`iter_batches`).
+
+    Returns ({layer: [N, C] float32}, n_images)."""
+    acc: Dict[str, list] = {l: [] for l in layers}
+    if not (hasattr(target, "harvest_u8_dispatch") and _has_u8(probe)):
+        n_images = 0
+        for batch in iter_batches(probe, batch_size):
+            captured = target.harvest(batch.images, layers, pool_mode)
+            for l in captured:
+                acc[canonical_layer_name(l)].append(captured[l][:batch.n_valid])
+            n_images += batch.n_valid
+        return {l: np.concatenate(acc[l], axis=0) for l in layers}, n_images
+
+    def drain(result, n_valid):
+        packed, names, widths = result
+        _split_columns(acc, packed, n_valid, names, widths)
+
+    pin = getattr(target, "device", torch.device("cpu")).type == "cuda"
+    n_images = _pipelined(
+        _prefetch_u8_batches(probe, batch_size, pin=pin),
+        lambda u8: target.harvest_u8_dispatch(u8, layers, pool_mode, probe.mean, probe.std),
+        drain, pipeline_depth)
+    return {l: np.concatenate(acc[l], axis=0) for l in layers}, n_images
+
+
+def _fused_harvest_embed(dissector, probe, layers, pool_mode: str, batch_size: int,
+                         pipeline_depth: int = 2):
+    """The fused stages 1 and 2 (see save_activations), pipelined as harvest_probe.
+    Returns ({layer: [N, C]}, embeddings [N, D], n_images)."""
+    acc: Dict[str, list] = {l: [] for l in layers}
+    emb_acc: list = []
+
+    def drain(result, n_valid):
+        packed_dev, emb_dev, names, widths = result
+        _split_columns(acc, packed_dev, n_valid, names, widths)
+        emb_acc.append(emb_dev.cpu().numpy()[:n_valid])
+
+    pin = dissector.device.type == "cuda"
+    n_images = _pipelined(
+        _prefetch_u8_batches(probe, batch_size, pin=pin),
+        lambda u8: dissector.harvest_and_embed_u8_dispatch(u8, layers, pool_mode,
+                                                           probe.mean, probe.std),
+        drain, pipeline_depth)
+    return ({l: np.concatenate(acc[l], axis=0) for l in layers},
+            np.concatenate(emb_acc, axis=0), n_images)
 
 
 class _ChunkSpiller:
@@ -256,7 +534,7 @@ def fused_harvest_embed_resident(dissector, probe, layers, pool_mode: str, batch
                                  sync_every: int = 16, chunk_batches: int = 16, log=None,
                                  cache_dir: Optional[str] = None, cache_key: str = "",
                                  deadline: Optional[float] = None,
-                                 timing: Optional[list] = None):
+                                 timing: Optional[list] = None, wire_pack: str = "off"):
     """Device-resident fused M-dissect harvest (see BreastClip.fused_resident_step).
 
     Accumulators are fixed-capacity chunks of `chunk_batches * batch_size` rows on
@@ -264,17 +542,21 @@ def fused_harvest_embed_resident(dissector, probe, layers, pool_mode: str, batch
     which bounds how far it runs ahead. cache_dir/cache_key enable chunk spill and
     resume. `deadline` (a time.monotonic() value) stops the harvest at a batch
     boundary once less than ~1.5 batch times remain; the rows harvested so far stay
-    valid. `timing`, if a list, collects per-batch {"assemble_s", "put_s", "step_s",
-    "sync_s", "wire_bytes"} (host clock; the step is asynchronous on the GPU, so
-    step_s is its enqueue time except on sync batches).
+    valid. `wire_pack` ("off"/"on"/"auto", `_decide_wire_pack`) sends each row's
+    nonzero span instead of the whole canvas (dissect/packing.py); the canvas the
+    step rebuilds is bit-identical. `timing`, if a list, collects per-batch
+    {"assemble_s", "put_s", "step_s", "sync_s", "pack_s", "wire_bytes"} (host clock;
+    the step is asynchronous on the GPU, so step_s is its enqueue time except on
+    sync batches; pack_s is the producer thread's packing time).
 
     Returns (act_chunks, emb_chunks, names, widths, n_images): the chunks concatenate
     to [>= n_images, U_total] / [>= n_images, D] float32 on the device."""
     device = dissector.device
     h, w, c = probe.image_shape
     shape = (batch_size, h, w, c)
-    step, names, widths = dissector.fused_resident_step(shape, layers, pool_mode,
-                                                        probe.mean, probe.std)
+    packed = _decide_wire_pack(wire_pack, probe)
+    make_step = dissector.fused_resident_step_packed if packed else dissector.fused_resident_step
+    step, names, widths = make_step(shape, layers, pool_mode, probe.mean, probe.std)
     u_total = int(sum(widths))
     cap = chunk_batches * batch_size
     emb_dim = int(dissector.module.proj_dim)
@@ -308,18 +590,28 @@ def fused_harvest_embed_resident(dissector, probe, layers, pool_mode: str, batch
                 + (f" + a partial chunk at row {offset}" if part else "")
                 + f" ({n_images} images) from {cache_dir}")
 
-    batches = _prefetch_u8_batches(probe, batch_size, start=consumed,
-                                   pin=device.type == "cuda")
+    pin = device.type == "cuda"
+    if packed:
+        raw_bytes = batch_size * h * w * c
+        batches = _prefetch_packed_batches(probe, batch_size, max(raw_bytes // 16, 1),
+                                           raw_bytes, start=consumed, pin=pin)
+        if log is not None:
+            log(f"[resident] packed uint8 wire ({native_packer()} packer)")
+    else:
+        batches = ((u8, None, n_valid, 0.0) for u8, n_valid in
+                   _prefetch_u8_batches(probe, batch_size, start=consumed, pin=pin))
     i_batch = 0
     try:
-        for u8_host, n_valid in batches:
+        for payload, meta, n_valid, pack_s in batches:
             t0 = time.perf_counter()
             if acc_a is None:
                 acc_a, acc_e = zeros(u_total), zeros(emb_dim)
             t1 = time.perf_counter()
-            u8_dev = u8_host.to(device, non_blocking=True)
+            wire = [payload.to(device, non_blocking=True)]
+            if packed:
+                wire.append(meta.to(device, non_blocking=True))
             t2 = time.perf_counter()
-            step(acc_a, acc_e, u8_dev, offset)
+            step(acc_a, acc_e, *wire, offset)
             t3 = time.perf_counter()
             n_images += n_valid
             consumed += batch_size
@@ -339,8 +631,9 @@ def fused_harvest_embed_resident(dissector, probe, layers, pool_mode: str, batch
                 if log is not None:
                     log(f"[resident] {n_images}/{len(probe)} images")
             if timing is not None:
+                wire_bytes = payload.numel() + (meta.numel() * meta.element_size() if packed else 0)
                 timing.append({"assemble_s": t1 - t0, "put_s": t2 - t1, "step_s": t3 - t2,
-                               "sync_s": t4 - t3, "wire_bytes": u8_host.numel()})
+                               "sync_s": t4 - t3, "pack_s": pack_s, "wire_bytes": wire_bytes})
             if deadline is not None:
                 margin = min(1.5 * (t4 - t0), 120.0)
                 if time.monotonic() >= deadline - margin:
@@ -393,39 +686,98 @@ def score_resident(act_chunks, emb_chunks, n_images: int, text_features: np.ndar
     return top_vals.cpu().numpy(), top_idx.cpu().numpy(), img_idx.cpu().numpy()
 
 
-def _run_dissection_resident(cfg: DissectConfig, probe, dissector=None, log=print):
-    """Fully device-resident M-dissect. Returns (DataFrame, csv_path)."""
+def get_target_activations(target_save_name: str, neuron_idx=None) -> np.ndarray:
+    """Cached activations, or one neuron's column (the reference's
+    `get_dist_from_target_activations`, `concept_vit/utils.py:613-617`)."""
+    target_feats = np.load(target_save_name)
+    return target_feats[:, neuron_idx] if neuron_idx is not None else target_feats
+
+
+def _load_clip_feats(clip_save_name: str, text_save_name: str) -> np.ndarray:
+    """clip_feats = image @ text.T [N, C] float32 of the L2-normalized cached
+    embeddings (`utils.py:566-612`)."""
+    image_features = np.load(clip_save_name).astype(np.float32)
+    text_features = np.load(text_save_name).astype(np.float32)
+    image_features /= np.clip(np.linalg.norm(image_features, axis=1, keepdims=True), 1e-12, None)
+    text_features /= np.clip(np.linalg.norm(text_features, axis=1, keepdims=True), 1e-12, None)
+    return image_features @ text_features.T
+
+
+def get_similarity_from_activations(target_save_name: str, clip_save_name: str,
+                                    text_save_name: str, similarity_fn,
+                                    return_target_feats: bool = True, top_k: int = 100,
+                                    device="cpu"):
+    """Stage 4 of one layer (reference `utils.py:566-612`): load the cached features,
+    score them on `device`. Returns similarity [U, C] (and the activations) as numpy."""
+    clip_feats = _load_clip_feats(clip_save_name, text_save_name)
+    target_feats = np.load(target_save_name).astype(np.float32)
+    kwargs = {}
+    if getattr(similarity_fn, "__name__", "") == "soft_wpmi":
+        kwargs["top_k"] = min(top_k, target_feats.shape[0])
+    dev = torch.device(device)
+    similarity = similarity_fn(torch.from_numpy(clip_feats).to(dev),
+                               torch.from_numpy(target_feats).to(dev), **kwargs).cpu().numpy()
+    return (similarity, target_feats) if return_target_feats else similarity
+
+
+@torch.inference_mode()
+def score_all_layers(feats_by_layer: Dict[str, np.ndarray], clip_save_name: str,
+                     text_save_name: str, similarity_name: str, top_k: int = 100,
+                     device="cpu") -> Dict[str, np.ndarray]:
+    """Stage 4 over all layers in one call on `device`: the per-layer [N, U_l]
+    activations are concatenated into [N, U_total]; soft_wpmi/wpmi score it with
+    their segmented forms (log p(d) per layer, the math of the reference's
+    layer-by-layer loop, `describe_broad_neurons.py:83-119`), the others are per
+    unit. Returns {layer: similarity [U_l, C]} as numpy."""
+    clip_feats = _load_clip_feats(clip_save_name, text_save_name)
+    layers = list(feats_by_layer)
+    widths = [feats_by_layer[l].shape[1] for l in layers]
+    target_cat = np.concatenate([feats_by_layer[l].astype(np.float32) for l in layers], axis=1)
+    dev = torch.device(device)
+    clip_t, target_t = torch.from_numpy(clip_feats).to(dev), torch.from_numpy(target_cat).to(dev)
+    kwargs = {"top_k": min(top_k, target_cat.shape[0])} if similarity_name == "soft_wpmi" else {}
+    if similarity_name in SEGMENTED_FNS:
+        segment_ids = np.repeat(np.arange(len(layers), dtype=np.int64), widths)
+        sim = SEGMENTED_FNS[similarity_name](clip_t, target_t, segment_ids, len(layers), **kwargs)
+    else:
+        sim = get_similarity_fn(similarity_name)(clip_t, target_t, **kwargs)
+    sim_cat = sim.cpu().numpy()
+    out, off = {}, 0
+    for layer, w in zip(layers, widths):
+        out[layer] = sim_cat[off:off + w]
+        off += w
+    return out
+
+
+def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=None,
+                             log=print, timing=None):
+    """Fully device-resident M-dissect. Returns (DataFrame, csv_path), or None when
+    the configuration cannot run resident (another target, target kwargs, a
+    fine-tuned checkpoint, a target object, or a probe without uint8 images)."""
     if not (cfg.target_model == "breastclip" and cfg.clip_model == "breastclip"
-            and not cfg.target_kwargs and not cfg.finetuned_ckpt):
-        raise NotImplementedError(
-            "only the resident M-dissect (target_model = clip_model = 'breastclip', no "
-            "target_kwargs, no finetuned checkpoint) is ported so far")
-    if not (hasattr(probe, "image_u8") and hasattr(probe, "mean")):
-        raise NotImplementedError("the resident path needs a uint8 probe with mean/std")
-    if cfg.wire_pack != "off":
-        raise NotImplementedError(f"wire_pack={cfg.wire_pack!r}: only the plain uint8 wire "
-                                  "('off') is ported so far")
-    dk = dict(cfg.dissector_kwargs)
-    dk.setdefault("ckpt_path", cfg.breast_clip_ckpt)
-    dk.setdefault("device", cfg.device)
-    dissector = dissector or get_dissector(cfg.clip_model, **dk)
+            and not cfg.target_kwargs and not cfg.finetuned_ckpt and target is None
+            and _has_u8(probe)):
+        return None
+    dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
     bs = cfg.batch_size
 
     words = read_concepts(cfg.concept_set)
     layers = [canonical_layer_name(l) for l in cfg.target_layers]
     os.makedirs(cfg.activation_dir, exist_ok=True)
     d_probe_key = cfg.d_probe.replace("/", "_").replace(":", "_")
+    # the wire is resolved here so that the resume key names the wire that ran
+    wire_mode = "on" if _decide_wire_pack(cfg.wire_pack, probe) else "off"
     # the resume key covers everything that changes chunk contents: geometry checks
     # alone would resume stale chunks after a pool_mode / layer / weight change
     sig = hashlib.sha1(repr((tuple(layers), cfg.pool_mode, sorted(cfg.probe_kwargs.items()),
-                             cfg.breast_clip_ckpt, cfg.wire_pack, "torch",
+                             cfg.breast_clip_ckpt, wire_mode, "torch",
                              sorted(cfg.dissector_kwargs.items()))).encode()).hexdigest()[:8]
     cache_key = f"{cfg.save_prefix}{d_probe_key}_{cfg.clip_model}_resident_b{bs}_{sig}"
     deadline = time.monotonic() + cfg.deadline_s if cfg.deadline_s is not None else None
     t0 = time.time()
     act_chunks, emb_chunks, names, widths, n_images = fused_harvest_embed_resident(
         dissector, probe, layers, cfg.pool_mode, bs, cache_dir=cfg.activation_dir,
-        cache_key=cache_key, log=log, deadline=deadline)
+        cache_key=cache_key, log=log, deadline=deadline, timing=timing, wire_pack=wire_mode)
     if n_images < len(probe):
         log(f"[resident] PARTIAL dissection: {n_images}/{len(probe)} images within "
             f"the {cfg.deadline_s}s budget; rerun to resume and complete")
@@ -454,18 +806,48 @@ def _run_dissection_resident(cfg: DissectConfig, probe, dissector=None, log=prin
     return write_results(outputs, cfg)
 
 
-def run_dissection(cfg: DissectConfig, probe=None, dissector=None, log=print):
-    """The whole dissection (reference `describe_broad_neurons.py.__main__`): harvest + score
-    every layer, write the results CSV {layer, unit, description, similarity,
+def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, log=print,
+                   timing: Optional[list] = None):
+    """The whole dissection (reference `describe_broad_neurons.py.__main__`): harvest and
+    score every layer, write the results CSV {layer, unit, description, similarity,
     images} and args.txt. Returns (DataFrame, csv_path).
 
-    Runs on `cfg.device` (default CUDA; raises without a GPU unless "cpu")."""
+    Runs on `cfg.device` (default CUDA; raises without a GPU unless "cpu").
+    `timing`, if a list, collects the resident harvest's per-batch timing
+    (`fused_harvest_embed_resident`)."""
     device = resolve_device(cfg.device)
     if device.type == "cuda":
         set_fp32_policy()
-    if not cfg.resident:
-        raise NotImplementedError("the staged (disk-cache) dissection is not ported yet; "
-                                  "run the resident path (resident=True / --resident)")
-    if probe is None:
+    if probe is None:  # built once: a fallback hands the same probe to the staged path
         probe = get_probe(cfg.d_probe, **cfg.probe_kwargs)
-    return _run_dissection_resident(cfg, probe, dissector=dissector, log=log)
+    if cfg.resident:
+        out = _run_dissection_resident(cfg, probe, target=target, dissector=dissector,
+                                       log=log, timing=timing)
+        if out is not None:
+            return out
+        log("[resident] not applicable (non-fused target/probe); using the staged path")
+
+    paths = save_activations(cfg, probe=probe, target=target, dissector=dissector, log=log)
+    words = read_concepts(cfg.concept_set)
+    layer_names = [canonical_layer_name(l) for l in cfg.target_layers]
+    feats_by_layer = {l: np.load(paths[f"target:{l}"]).astype(np.float32) for l in layer_names}
+    sims = score_all_layers(feats_by_layer, paths["clip"], paths["text"], cfg.similarity_fn,
+                            top_k=cfg.top_k, device=device)
+
+    outputs = {"layer": [], "unit": [], "description": [], "similarity": [], "images": []}
+    for layer in layer_names:
+        sim, target_feats = sims[layer], feats_by_layer[layer]
+        k_c = min(cfg.num_top_concepts, sim.shape[1])
+        k_i = min(cfg.num_top_images, target_feats.shape[0])
+        # stable sorts: ties go to the lowest index, as on the resident path
+        top_concepts = np.argsort(-sim, axis=1, kind="stable")[:, :k_c]  # [U, k_c]
+        top_vals = np.take_along_axis(sim, top_concepts, axis=1)
+        top_images = np.argsort(-target_feats, axis=0, kind="stable")[:k_i].T  # [U, k_i]
+        n_units = sim.shape[0]
+        outputs["layer"].extend([layer] * n_units)
+        outputs["unit"].extend(range(n_units))
+        outputs["description"].extend([[words[int(i)] for i in row] for row in top_concepts])
+        outputs["similarity"].extend([row.tolist() for row in top_vals])
+        outputs["images"].extend([row.tolist() for row in top_images])
+        log(f"[score] {layer}: {n_units} units scored")
+    return write_results(outputs, cfg)

@@ -11,8 +11,10 @@ State-dict names follow the reference: `image_encoder._blocks.i...`,
 `text_projection.projection`, `logit_scale`.
 
 `BreastClip` wraps the module with its tokenizer and device and provides the
-dissector interface (`embed_texts`, `embed_tokens`) and the device-resident fused
-M-dissect step (`fused_resident_step`).
+dissector interface (`embed_images`, `embed_images_u8`, `embed_texts`,
+`embed_tokens`), the fused harvest of the staged path
+(`harvest_and_embed_u8_dispatch`) and the device-resident fused M-dissect steps
+of both wires (`fused_resident_step`, `fused_resident_step_packed`).
 """
 from __future__ import annotations
 
@@ -25,12 +27,17 @@ import torch
 from torch import nn
 
 from mammodissect_torch.convert import load_breastclip_checkpoint
-from mammodissect_torch.device import resolve_device
+from mammodissect_torch.device import resolve_device, resolve_dtype
 from mammodissect_torch.dissect.capture import canonical_layer_name, layer_index
 from mammodissect_torch.dissect.dissectors import DISSECTORS
+from mammodissect_torch.dissect.packing import unpack_canvas_groups
 from mammodissect_torch.models.bert import BertModel
 from mammodissect_torch.models.efficientnet import EfficientNetMammo
-from mammodissect_torch.models.layers import LinearProjectionHead, MLPProjectionHead
+from mammodissect_torch.models.layers import (
+    LinearProjectionHead,
+    MLPProjectionHead,
+    init_weights,
+)
 from mammodissect_torch.models.tokenizers import WordPieceTokenizer
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
 
@@ -115,27 +122,7 @@ class BreastClipModule(nn.Module):
         return self._l2n(self.text_projection(feats))
 
 
-@torch.no_grad()
-def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from `generator`: LeCun-normal convs and dense layers
-    (std 1/sqrt(fan_in)), zero biases, N(0, 1/hidden) embeddings, identity
-    normalization statistics."""
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                           / math.sqrt(m.embedding_dim))
-        elif isinstance(m, nn.BatchNorm2d):
-            m.reset_parameters()
-        elif isinstance(m, nn.LayerNorm):
-            m.reset_parameters()
-
-
-ResidentStep = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], None]
+ResidentStep = Callable[..., None]
 
 
 class BreastClip:
@@ -208,6 +195,80 @@ class BreastClip:
         widths = tuple(blocks[i].output_filters for i in capture)
         return capture, names, widths
 
+    def _encode_u8(self, u8: torch.Tensor, capture: Sequence[int], pool_mode: str,
+                   mean: float, std: float):
+        """uint8 batch on the device -> ({"blocks.i": pooled}, projected embedding):
+        min-max + mean/std on the device, one tower forward."""
+        x = u8_minmax_meanstd(u8, mean, std)
+        pooled, captured = self.module.image_encoder(x, capture=capture, pool_mode=pool_mode)
+        return captured, self.module.project_image(pooled)
+
+    @torch.inference_mode()
+    def encode_image(self, images) -> np.ndarray:
+        """Pooled image features [B, 2048] float32 of a float [B, H, W, C] batch."""
+        x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
+        return self.module.encode_image(x).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def encode_text(self, input_ids, attention_mask) -> np.ndarray:
+        """Pooled text features [C, 768] float32 (the tower's eos/bos/mean pooling)."""
+        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long).to(self.device)
+        mask = torch.as_tensor(np.asarray(attention_mask), dtype=torch.long).to(self.device)
+        return self.module.encode_text(ids, mask).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def embed_images(self, images) -> np.ndarray:
+        """Dissector interface: projected + L2-normalized embeddings [B, D] float32 of a
+        float [B, H, W, C] batch (`utils.py:19-26` encode_image + projection + norm)."""
+        x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
+        return self.module.project_image(self.module.encode_image(x)).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def embed_images_u8(self, images_u8, mean: float, std: float) -> np.ndarray:
+        """`embed_images` of a uint8 batch (numpy or a CPU tensor, pinned for an
+        asynchronous copy), normalized on the device."""
+        u8 = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
+        _, emb = self._encode_u8(u8, (), "avg", mean, std)
+        return emb.float().cpu().numpy()
+
+    @torch.inference_mode()
+    def harvest_and_embed_u8_dispatch(self, images_u8, layers: Sequence[str], pool_mode: str,
+                                      mean: float, std: float):
+        """Fused M-dissect of one uint8 batch, when the dissection target is this
+        model's own image tower: one forward gives the pooled activations of the
+        named blocks and the probe embedding. The work is queued on the device and
+        the results stay there, so the caller can queue the next batch before it
+        reads these.
+
+        Returns (activations [B, U_total] float32, embeddings [B, D] float32, names,
+        widths), both tensors on the device."""
+        capture, names, widths = self.capture_plan(layers)
+        u8 = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
+        captured, emb = self._encode_u8(u8, capture, pool_mode, mean, std)
+        return torch.cat([captured[n] for n in names], dim=-1), emb.float(), names, widths
+
+    def _resident_step(self, shape: Tuple[int, ...], layers: Sequence[str], pool_mode: str,
+                       mean: float, std: float, decode: Callable[..., torch.Tensor]):
+        """The resident step of one wire format; `decode(*wire)` gives the
+        [B, H, W, C] uint8 canvas. Both wires share everything after the decode."""
+        capture, names, widths = self.capture_plan(layers)
+
+        @torch.inference_mode()
+        def step(acc_acts: torch.Tensor, acc_emb: torch.Tensor, *wire_and_offset) -> None:
+            *wire, offset = wire_and_offset
+            u8 = decode(*wire)
+            if tuple(u8.shape) != shape:
+                raise ValueError(f"resident step built for {shape}, got {tuple(u8.shape)}")
+            captured, emb = self._encode_u8(u8, capture, pool_mode, mean, std)
+            rows = slice(offset, offset + shape[0])
+            col = 0
+            for name, w in zip(names, widths):
+                acc_acts[rows, col:col + w] = captured[name]
+                col += w
+            acc_emb[rows] = emb.float()
+
+        return step, names, widths
+
     def fused_resident_step(self, sample_shape, layers: Sequence[str], pool_mode: str,
                             mean: float, std: float) -> Tuple[ResidentStep, List[str], Tuple[int, ...]]:
         """Device-resident fused M-dissect step.
@@ -218,37 +279,20 @@ class BreastClip:
         named blocks captured, projects the pooled features, and writes the batch's
         concatenated pooled activations and embeddings into the accumulators at row
         `offset`, in place."""
-        capture, names, widths = self.capture_plan(layers)
+        return self._resident_step(tuple(sample_shape), layers, pool_mode, mean, std,
+                                   decode=lambda u8: u8)
+
+    def fused_resident_step_packed(self, sample_shape, layers: Sequence[str], pool_mode: str,
+                                   mean: float, std: float):
+        """`fused_resident_step` for the packed uint8 wire (`dissect/packing.py`), one
+        shard group: step(acc_acts, acc_emb, flat2d [1, L] uint8, meta [B, H, 2] int32,
+        offset) rebuilds the bit-identical canvas on the device
+        (`unpack_canvas_groups`), then runs the same normalize, forward and
+        accumulate. Any bucket length L: the eager step needs no static shape."""
         shape = tuple(sample_shape)
-        module = self.module
-
-        @torch.inference_mode()
-        def step(acc_acts: torch.Tensor, acc_emb: torch.Tensor, u8: torch.Tensor,
-                 offset: int) -> None:
-            if tuple(u8.shape) != shape:
-                raise ValueError(f"resident step built for {shape}, got {tuple(u8.shape)}")
-            x = u8_minmax_meanstd(u8, mean, std)
-            pooled, captured = module.encode_image(x, capture=capture, pool_mode=pool_mode)
-            emb = module.project_image(pooled)
-            rows = slice(offset, offset + shape[0])
-            col = 0
-            for name, w in zip(names, widths):
-                acc_acts[rows, col:col + w] = captured[name]
-                col += w
-            acc_emb[rows] = emb.float()
-
-        return step, names, widths
-
-
-def _resolve_dtype(dtype) -> torch.dtype:
-    if dtype is None:
-        return torch.float32
-    if isinstance(dtype, str):
-        resolved = getattr(torch, dtype, None)
-        if not isinstance(resolved, torch.dtype):
-            raise ValueError(f"unknown dtype {dtype!r}")
-        return resolved
-    return dtype
+        return self._resident_step(
+            shape, layers, pool_mode, mean, std,
+            decode=lambda flat2d, meta: unpack_canvas_groups(flat2d, meta, shape))
 
 
 @DISSECTORS.register("breastclip")
@@ -271,6 +315,6 @@ def _breastclip_dissector(ckpt_path=None, vocab_file=None, image_shape=None, max
         )
         tok = WordPieceTokenizer.toy()
     clip = BreastClip.create(tokenizer=tok, ckpt_path=ckpt_path, vocab_size=len(tok.vocab),
-                             device=device, dtype=_resolve_dtype(dtype), **kw)
+                             device=device, dtype=resolve_dtype(dtype), **kw)
     clip.max_length = max_length
     return clip

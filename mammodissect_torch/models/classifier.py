@@ -1,0 +1,77 @@
+"""The fine-tuned Mammo-CLIP classifier, the target of C-Mammo-CLIP Dissect
+(counterpart of `mammodissect/models/classifier.py`).
+
+`BreastClipClassifierModule` is the reference's `BreastClipClassifier`
+(`Classifiers/models/breast_clip_classifier.py:6-81`): the Mammo-CLIP EfficientNet
+image encoder ('-detect' tower, average-pooled) and a linear head. Its submodules
+carry the reference's names, `image_encoder.*` and `classifier.fc.*`, so a
+fine-tuned `.pth` loads with `load_state_dict` (`convert.load_classifier_checkpoint`).
+Compute dtype float32 by default, as in the JAX package. Eval only: training
+(`MammoEfficientNetModule`, frozen-parameter labels) belongs to fine-tuning.
+"""
+from __future__ import annotations
+
+import re
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from mammodissect_torch.models.efficientnet import EfficientNetMammo
+from mammodissect_torch.models.layers import LinearClassifier
+
+
+class BreastClipClassifierModule(nn.Module):
+    """EfficientNet(-Mammo) encoder + linear head.
+
+    forward(images [B, H, W, C] NHWC, capture=(i, ...), pool_mode) -> logits
+    [B, n_class], or (logits, {"blocks.i": pooled [B, C_i] float32}) with a capture.
+    `freeze_encoder` ('*_lp' linear-probe archs) keeps the encoder in eval mode
+    when the module is put in training mode, as the reference's
+    `MammoClassification.train()` does (`model/image_classification.py:50-61`)."""
+
+    def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 3,
+                 n_class: int = 1, freeze_encoder: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.freeze_encoder = freeze_encoder
+        # the reference rebuilds the '-detect' encoder from the CLIP checkpoint's
+        # config and feeds it RGB copies of the grayscale mammograms: 3 channels
+        self.image_encoder = EfficientNetMammo(variant=variant, in_channels=in_channels,
+                                               pooling="avg", dtype=dtype)
+        self.classifier = LinearClassifier(self.image_encoder.out_dim, n_class)
+        self.classifier.to(dtype)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_encoder:
+            self.image_encoder.eval()
+        return self
+
+    def encode_image(self, images: torch.Tensor, capture: Sequence[int] = (),
+                     pool_mode: str = "avg"):
+        return self.image_encoder(images, capture=capture, pool_mode=pool_mode)
+
+    def forward(self, images: torch.Tensor, capture: Sequence[int] = (),
+                pool_mode: str = "avg"):
+        pooled, captured = self.encode_image(images, capture=capture, pool_mode=pool_mode)
+        logits = self.classifier(pooled)
+        return (logits, captured) if capture else logits
+
+
+def arch_is_linear_probe(arch: str) -> bool:
+    """'*_lp' archs are linear probes (`breast_clip_classifier.py:41`)."""
+    return arch.endswith("_lp")
+
+
+def arch_variant(arch: str) -> str:
+    """The EfficientNet variant of a reference arch string
+    (upmc_breast_clip_det_b5_period_n_ft, ..._b2_..., any bN tag; default b5)."""
+    if "efficientnetv2" in arch or "_v2" in arch:
+        return "efficientnetv2-s"
+    if "_test_" in arch or arch.endswith("_test"):
+        return "efficientnet-test"  # the 7-block test variant
+    m = re.search(r"_b([0-7])(_|$)", arch)
+    if m:
+        return f"efficientnet-b{m.group(1)}"
+    return "efficientnet-b5"

@@ -15,8 +15,9 @@
   -> BN -> SiLU -> depthwise -> BN -> SiLU) through `ops.cuda_mbconv.fused_expand_dw`,
   the CUDA kernel on the GPU; strided and expand-1 blocks use `F.conv2d`.
 - `capture` pools the named blocks' outputs in float32 as the forward passes them.
-- Eval only: training-mode BatchNorm, FusedMBConv (V2), the space-to-depth stem
-  and true-SAME padding are not ported yet.
+- Eval only: a block with the fused front half raises in training mode (it folds
+  the BatchNorms' running statistics). Training-mode BatchNorm, FusedMBConv (V2),
+  the space-to-depth stem and true-SAME padding are not ported yet.
 """
 from __future__ import annotations
 
@@ -197,6 +198,13 @@ class MBConvBlock(nn.Module):
         ba = self.args
         inp = x
         if self.fused_front:
+            if self.training:
+                # the fused front folds the BatchNorms' running statistics; training
+                # mode normalizes by batch statistics instead
+                raise NotImplementedError(
+                    "MBConvBlock in training mode: the fused front half folds BatchNorm "
+                    "running statistics, and training-mode BatchNorm (fine-tuning, "
+                    "roadmap item 12) is not ported yet; call .eval()")
             p = (ba.kernel_size - 1) // 2
             if padding != ((p, p), (p, p)):
                 raise ValueError(f"stride-1 depthwise padding {padding} is not SAME")

@@ -8,7 +8,8 @@
   activation dtype, with float32 parameters (flax's dtype policy in the JAX
   package; cuDNN's bf16 batch norm does the same internally).
 - Linear / Conv2d: cast their input to the weight dtype (flax's `dtype=`).
-- GeM, LinearProjectionHead, MLPProjectionHead.
+- GeM, LinearProjectionHead, MLPProjectionHead, LinearClassifier.
+- init_weights: random weights from an explicit torch.Generator.
 """
 from __future__ import annotations
 
@@ -39,6 +40,26 @@ def round_repeats(repeats: int, depth_coefficient: float | None) -> int:
     if not depth_coefficient:
         return repeats
     return int(math.ceil(depth_coefficient * repeats))
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from `generator`: LeCun-normal convs and dense layers
+    (std 1/sqrt(fan_in)), zero biases, N(0, 1/hidden) embeddings, identity
+    normalization statistics."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           / math.sqrt(m.embedding_dim))
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
 
 
 def drop_connect(x: torch.Tensor, rate: float, training: bool,
@@ -133,3 +154,15 @@ class MLPProjectionHead(nn.Module):
         projected = self.projection(x)
         h = self.dropout(self.fc(F.gelu(projected)))
         return self.layer_norm(h + projected)
+
+
+class LinearClassifier(nn.Module):
+    """Single linear head (reference `model/modules/image_classifier.py:4-10`); the
+    reference's state-dict names `fc.{weight,bias}`."""
+
+    def __init__(self, in_dim: int, n_class: int):
+        super().__init__()
+        self.fc = Linear(in_dim, n_class)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x)

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+PM_SUFFIX = {"max": "_max", "avg": ""}  # the cache-file suffix of a pool mode (`utils.py:16`)
+
 
 def pool_activation(x: torch.Tensor, mode: str = "avg", data_format: str = "NCHW") -> torch.Tensor:
     """Pool a captured activation to [batch, features]."""

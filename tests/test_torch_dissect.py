@@ -2,7 +2,8 @@
 on one tiny probe (efficientnet-test tower, 2-layer BERT, the tiny concept set) with
 the same weights, float32 on the CPU. The CSVs must agree on >= 99% of per-unit
 top-1 concepts (exact at f32 is expected) and list the same top images. Also the
-port's chunk spill and resume, its CLI on the CPU, and what it refuses."""
+port's chunk spill and resume, its CLI on the CPU, the paths it took over from the
+JAX package in later slices, and what it still refuses."""
 import json
 import os
 import warnings
@@ -107,16 +108,60 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "Dissection done! 80 units described" in out  # 16 + 64 units
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"resident": False}, "staged"),
-    ({"wire_pack": "on"}, "wire"),
-    ({"target_model": "tiny_cnn"}, "only the resident M-dissect"),
+def test_cli_staged_on_cpu(tmp_path, capsys):
+    """The CLI's staged path with the test target and the random dissector; a rerun
+    reads the cache."""
+    from mammodissect_torch.cli.dissect import main
+
+    argv = ["--target_model", "tiny_cnn", "--clip_model", "random",
+            "--target_layers", "blocks.0,image_encoder._blocks[3]", "--d_probe", "synthetic_u8",
+            "--batch_size", "4", "--probe_kwargs", json.dumps({"n": 6, "h": 40, "w": 32}),
+            "--concept_set", "tests/assets/tiny_concepts.txt", "--device", "cpu",
+            "--wire_pack", "auto", "--activation_dir", str(tmp_path / "a"),
+            "--result_dir", str(tmp_path / "r")]
+    assert main(argv) == 0
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert out.count("Dissection done! 56 units described") == 2  # 16 + 40 units
+    assert "[harvest] 6 images x 2 layers" in out
+    assert "[harvest] all target activations cached, skipping" in out
+
+
+@pytest.mark.parametrize("change,log", [
+    ({"resident": False}, "[fused] harvested 7 layers + embedded 20 images"),
+    ({"wire_pack": "on"}, "[resident] packed uint8 wire"),
+    ({"target_model": "tiny_cnn"}, "[resident] not applicable"),
 ])
-def test_unported_paths_raise(setup, tmp_path, change, match):
+def test_formerly_refused_paths_run(setup, tmp_path, change, log):
+    """The staged path, the packed wire and another target, which the port refused
+    before they were ported: they run, and say which path they took."""
     images, _, pd_ = setup
     kw = _base()
     kw.update(change)
     cfg = DissectConfig(activation_dir=str(tmp_path / "a"), result_dir=str(tmp_path / "r"),
                         device="cpu", **kw)
+    logs = []
+    df, _ = run_dissection(cfg, probe=ArrayProbe(images, mean=0.3, std=0.25), dissector=pd_,
+                           log=logs.append)
+    assert any(l.startswith(log) for l in logs), logs
+    assert len(df) == (280 if kw["target_model"] == "breastclip" else 304)  # B0 blocks 0-6
+    assert np.isfinite(np.array([row for row in df["similarity"]])).all()
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"target_model": "breastclip_swin"}, "item 14"),
+    ({"target_model": "tiny_cnn", "clip_model": "ViT-B/16"}, "item 13"),
+    ({"target_model": "breastclip_classifier", "finetuned_ckpt": "<dir>"}, "orbax"),
+])
+def test_unported_paths_raise(setup, tmp_path, change, match):
+    """What the port still refuses: the Swin target (the target zoo), the CLIP
+    dissectors (G-dissect) and the JAX trainer's orbax checkpoints (fine-tuning)."""
+    images, _, _ = setup
+    kw = _base()
+    kw.update(change)
+    if kw.get("finetuned_ckpt") == "<dir>":
+        kw["finetuned_ckpt"] = str(tmp_path)
+    cfg = DissectConfig(activation_dir=str(tmp_path / "a"), result_dir=str(tmp_path / "r"),
+                        device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=match):
-        run_dissection(cfg, probe=ArrayProbe(images, mean=0.3, std=0.25), dissector=pd_)
+        run_dissection(cfg, probe=ArrayProbe(images, mean=0.3, std=0.25), log=lambda *_: None)

@@ -112,3 +112,19 @@ def test_only_inference_caches(mode):
     else:
         block._front_fused(x)
     assert "_front_cache" not in block.__dict__
+
+
+def test_fused_front_raises_in_training_mode():
+    """The fused front half folds the BatchNorms' running statistics; in training
+    mode BatchNorm normalizes by batch statistics instead, so the block refuses to
+    run rather than compute something else. Blocks without the fused front reach
+    the training-mode BatchNorm, which refuses too."""
+    model = _tower(_random_state(_tower(), seed=5))
+    fused = next(block for block in model._blocks if block.fused_front)
+    x = torch.zeros(1, fused.args.input_filters, 5, 5)
+    p = (fused.args.kernel_size - 1) // 2
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fused.train()(x, ((p, p), (p, p)))
+    with pytest.raises(NotImplementedError):
+        model.train()(_input())
+    fused.eval()(x, ((p, p), (p, p)))  # eval mode runs

@@ -207,3 +207,57 @@ def test_resident_dissection_gpu_matches_cpu(cuda, tmp_path):
     agree = np.mean([a == b for a, b in zip(top["cpu"], top["cuda"])])
     assert agree >= 0.99, agree
     assert list(dfs["cpu"]["images"]) == list(dfs["cuda"]["images"])
+
+
+def test_unpack_on_cuda_is_bit_identical(cuda):
+    """A mammogram-shaped batch packed by the host packer and unpacked on the card
+    gives back the batch, byte for byte (spans ending at W, rows starting right of
+    0, empty rows and an all-zero image included)."""
+    from mammodissect_torch.dissect.packing import pack_batch_groups_padded, unpack_canvas_groups
+
+    rng = np.random.default_rng(7)
+    u8 = np.zeros((6, 152, 96, 1), np.uint8)
+    for i in range(5):
+        hh, ww = rng.integers(40, 153), rng.integers(20, 97)
+        x0 = 0 if i % 2 else 96 - ww
+        u8[i, :hh, x0:x0 + ww] = rng.integers(1, 256, size=(hh, ww, 1), dtype=np.uint8)
+    for groups in (1, 2):
+        flat2d, meta, _ = pack_batch_groups_padded(u8, groups, quantum=4096, cap=u8.size // groups)
+        got = unpack_canvas_groups(torch.from_numpy(flat2d).to(cuda),
+                                   torch.from_numpy(meta).to(cuda), u8.shape)
+        assert got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(u8))
+
+
+def _classifier_target(device):
+    from mammodissect_torch.dissect.targets import get_target_model
+
+    return get_target_model("breastclip_classifier", device=device, seed=3)
+
+
+def test_classifier_harvest_cuda_matches_cpu(cuda):
+    """The B5 classifier target (fp32, kernel 2's fp32 instantiation on the card) at a
+    small geometry: the card's harvest against the CPU's (plain versions)."""
+    rng = np.random.default_rng(8)
+    u8 = rng.integers(0, 256, size=(3, 96, 64, 1), dtype=np.uint8)
+    layers = [f"blocks.{i}" for i in range(39)]
+    got, names, _ = _classifier_target("cuda").harvest_u8_dispatch(u8, layers, "avg", 0.3, 0.25)
+    want, _, _ = _classifier_target("cpu").harvest_u8_dispatch(u8, layers, "avg", 0.3, 0.25)
+    assert len(names) == 39
+    got, want = got.cpu().numpy(), want.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_harvest_probe_launches_kernel_2_per_batch(cuda):
+    """harvest_probe on the card: 32 kernel-2 launches a batch of B5 (its stride-1
+    blocks with an expansion), on the pipelined uint8 wire."""
+    from mammodissect_torch.data.probes import ArrayProbe
+    from mammodissect_torch.dissect.engine import harvest_probe
+
+    rng = np.random.default_rng(9)
+    probe = ArrayProbe(rng.integers(0, 256, size=(10, 96, 64, 1), dtype=np.uint8),
+                       mean=0.3, std=0.25)
+    target = _classifier_target("cuda")
+    before = fused_expand_dw.launches
+    acc, n = harvest_probe(target, probe, ["blocks.3", "blocks.38"], "avg", 4)
+    assert n == 10 and acc["blocks.38"].shape == (10, 512)
+    assert fused_expand_dw.launches - before == 32 * 3

@@ -60,6 +60,33 @@ def test_synthetic_probes_match_jax(spec):
         np.testing.assert_array_equal(pp.image(i), jp.image(i))
 
 
+@pytest.mark.parametrize("shape", [(224, 224, 3), (24, 20, 1)])
+def test_txt_list_probe_matches_jax(image_dir, tmp_path, shape):
+    """`path label` lines (a missing label reads -1, blank lines are skipped); the
+    ImageNet eval pipeline at 224x224x3, the folder preprocessing otherwise."""
+    listing = tmp_path / "list.txt"
+    listing.write_text("class0/img0.png 4\nclass1/img1.png\n\nclass0/img2.png 7\n")
+    jp = J.get_probe(f"txt:{listing}", root=str(image_dir), image_shape=shape)
+    pp = P.get_probe(f"txt:{listing}", root=str(image_dir), image_shape=shape)
+    assert len(pp) == len(jp) == 3 and pp.image_shape == jp.image_shape == shape
+    for i in range(3):
+        np.testing.assert_allclose(pp.image(i), jp.image(i), rtol=1e-6, atol=1e-6)
+        assert pp.label(i) == jp.label(i)
+    assert [pp.label(i) for i in range(3)] == [4, -1, 7]
+
+
+def test_combined_probe_matches_jax():
+    kw = dict(n=4, h=6, w=5, seed=2)
+    jp, pp = J.get_probe("combined:synthetic+synthetic_u8", **kw), \
+        P.get_probe("combined:synthetic+synthetic_u8", **kw)
+    assert len(pp) == len(jp) == 8
+    for i in range(8):
+        np.testing.assert_array_equal(pp.image(i), jp.image(i))
+        assert pp.label(i) == jp.label(i)
+    with pytest.raises(ValueError, match="image_shape"):
+        P.ConcatProbe([P.synthetic_probe(h=4), P.synthetic_probe(h=5)])
+
+
 def test_unknown_probe_raises():
     with pytest.raises(KeyError):
         P.get_probe("cifar100_train")
