@@ -35,7 +35,21 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      unpacked on the card must equal the batch; the resident main path on 256 images
      with the packed and the plain wire (in turns: plain, packed, packed, plain) must
      write the same top images and >= 0.99 of the top-1 concepts; img/s, wire bytes
-     and the host's packing time per batch of each, and what "auto" decides.
+     and the host's packing time per batch of each, and what "auto" decides;
+ 10. fine-tuning at full width (B5 classifier at 1520x912, batch 8, bf16 compute over
+     float32 weights, the uint8 wire, BCE with VinDr Mass's pos-weight, AdamW 5e-5 /
+     1e-4, random weights from a seed, batches from the mammogram pool): (a) two
+     warm-up and ten timed train steps, ms a step, img/s and peak memory, a finite
+     loss, changed weights and BatchNorm statistics, no kernel-2 launch in a train
+     step; the same with remat: the same first loss, a lower peak; (b) an eval batch
+     of the trained model launches kernel 2's bf16 instantiation 32 times, its
+     checkpoint loads as the `breastclip_classifier` C-dissect target (fp32) with an
+     equal state dict and the logits of the trained model computed in fp32;
+     (c) `do_experiments` end to end (one epoch, 32 train and 16 valid synthetic
+     mammogram PNGs, label Mass) writes the `.pth` and the out-of-fold CSV, its wall
+     time split into host loading/augmentation and train/eval steps, kernel 2
+     launched 32 times an eval batch; (d) three fp32 train steps (TF32 off) of the
+     test arch at a small geometry on the card and on the CPU agree.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -83,6 +97,10 @@ B5_SHAPES = [
     (3, 48, 29, 512, 3072, 2, 7.223),      # 37-38
 ]
 FIRST_VERSION_MS = {"wpmi": 0.923, "mbconv_forward": 124.0}  # same source and card
+FT_BATCH = 8           # the fine-tune CLI's default batch
+FT_TIMED_STEPS = 10
+FT_POS_WEIGHT = 15.573306370070778  # VinDr Mass (cli.finetune.DEFAULT_BCE_WEIGHTS)
+FT_TRAIN, FT_VALID = 32, 16         # synthetic PNGs of the end-to-end fine-tune
 
 
 def say(*a):
@@ -641,6 +659,281 @@ def phase_agreement():
     return {"top1_agreement": agree, "top_images_identical": images}
 
 
+def _ft_batches(pool, n, seed):
+    """n uint8 batches of FT_BATCH pool images with labels from `seed` (~1/3 positive)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        first = (i * FT_BATCH) % (len(pool) - FT_BATCH + 1)
+        out.append((np.ascontiguousarray(pool[first:first + FT_BATCH]),
+                    (rng.random(FT_BATCH) < 0.35).astype(np.float32)))
+    return out
+
+
+def _ft_trainer(cfg, device, warmup_steps=2, total_steps=100, shift_invariant_frozen=False):
+    """A Trainer of cfg's classifier on `device` (BCE with VinDr Mass's pos-weight).
+    shift_invariant_frozen: the project BatchNorm biases get no update (see
+    ft_card_vs_cpu)."""
+    from mammodissect_torch.train.experiments import build_model
+    from mammodissect_torch.train.trainer import Trainer, make_optimizer
+
+    model = build_model(cfg).to(device)
+    labels = None
+    if shift_invariant_frozen:
+        labels = {k: "frozen" if k.endswith("_bn2.bias") else "train"
+                  for k, _ in model.named_parameters()}
+    optimizer, scheduler = make_optimizer(model, cfg.lr, cfg.weight_decay, warmup_steps,
+                                          total_steps, param_labels=labels)
+    return Trainer(model, optimizer, scheduler, loss_kind="bce", pos_weight=FT_POS_WEIGHT,
+                   seed=cfg.seed, input_wire=cfg.input_wire, norm_mean=cfg.mean,
+                   norm_std=cfg.std, device=device)
+
+
+def ft_train_steps(device, pool, remat):
+    """(a): two warm-up and FT_TIMED_STEPS timed train steps of the B5 classifier at
+    full width. Returns (row, trainer)."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.train.experiments import FinetuneConfig
+
+    cfg = FinetuneConfig(seed=3, remat=remat, device=device.type)  # B5, bf16, u8
+    trainer = _ft_trainer(cfg, device)
+    model = trainer.model
+    watched = ("image_encoder._conv_stem.weight", "classifier.fc.weight",
+               "image_encoder._blocks.20._bn1.running_mean",
+               "image_encoder._blocks.20._bn1.running_var",
+               "image_encoder._blocks.38._project_conv.weight")
+    before = {k: model.state_dict()[k].detach().clone() for k in watched}
+    batches = _ft_batches(pool, 2 + FT_TIMED_STEPS, seed=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_expand_dw.launches = 0
+    losses = [trainer.train_batch(u8, y) for u8, y in batches[:2]]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += [trainer.train_batch(u8, y) for u8, y in batches[2:]]
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_expand_dw.launches
+    ms = start.elapsed_time(end) / FT_TIMED_STEPS
+    state = model.state_dict()
+    unchanged = [k for k in watched if torch.equal(state[k], before[k])]
+    check(bool(np.isfinite(losses).all()), f"fine-tune (remat={remat}): non-finite loss {losses}")
+    check(not unchanged, f"fine-tune (remat={remat}): unchanged after the steps: {unchanged}")
+    check(launches == 0, f"fine-tune (remat={remat}): kernel 2 launched {launches} times in "
+          "train steps (the training forward is unfused)")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "fine-tune: parameters are not float32")
+    row = {"remat": remat, "batch": FT_BATCH, "ms_per_step": ms,
+           "img_per_s": FT_BATCH * 1e3 / ms, "wall_s_timed": wall, "first_loss": losses[0],
+           "losses": losses, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "kernel2_launches_in_train_steps": launches}
+    say(f"[finetune] train steps, B5 classifier at {IMAGE_HW[0]}x{IMAGE_HW[1]}, batch {FT_BATCH}, "
+        f"bf16 compute over fp32 weights, u8 wire, remat={remat}: {ms:.2f} ms a step "
+        f"({row['img_per_s']:.2f} img/s; host clock {wall * 1e3 / FT_TIMED_STEPS:.2f} ms) over "
+        f"{FT_TIMED_STEPS} timed steps, peak {row['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+        f"losses {[round(l, 4) for l in losses]}; weights and BN statistics changed; kernel 2 "
+        f"launches in train steps: {launches}")
+    return row, trainer
+
+
+def ft_eval_and_checkpoint(device, pool, trainer, work):
+    """(b): kernel 2's bf16 instantiation in the trained model's eval; its checkpoint
+    as the fp32 C-dissect target."""
+    import torch
+
+    from mammodissect_torch.dissect.targets import get_target_model
+    from mammodissect_torch.models.layers import Conv2d, Linear
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.normalize import u8_minmax_meanstd
+    from mammodissect_torch.train.checkpoints import load_checkpoint, save_checkpoint
+
+    u8, y = _ft_batches(pool, 1, seed=5)[0]
+    fused_expand_dw.launches = 0
+    loss, preds = trainer.eval_batch(u8, y)
+    torch.cuda.synchronize()
+    launches = fused_expand_dw.launches
+    model = trainer.model
+    fused = [b for b in model.image_encoder._blocks if b.fused_front]
+    with torch.no_grad():
+        dtypes = {b._front_weights_cached()[0].dtype for b in fused}
+    check(launches == 32, f"eval of the trained model launched kernel 2 {launches} times, not 32")
+    check(dtypes == {torch.bfloat16}, f"kernel 2 ran with weights of {dtypes}, not bf16")
+    check(np.isfinite(loss) and np.isfinite(preds).all(), "non-finite eval of the trained model")
+    path = os.path.join(work, "finetuned.pth")
+    t0 = time.perf_counter()
+    save_checkpoint(path, trainer, epoch=0, metrics={"auroc": 0.5}, predictions=preds)
+    save_s = time.perf_counter() - t0
+    target = get_target_model("breastclip_classifier", finetuned_ckpt=path, device=device.type)
+    saved = load_checkpoint(path)["model"]
+    got = target.model.state_dict()
+    check(set(got) == set(saved) and all(torch.equal(got[k].cpu(), v) for k, v in saved.items()),
+          "the C-dissect target's state dict differs from the checkpoint's")
+    # the trained model computing in fp32 (its weights are fp32): the target's arithmetic
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            m.compute_dtype = None
+    x = u8_minmax_meanstd(torch.from_numpy(u8).to(device), trainer.norm_mean, trainer.norm_std)
+    capture = tuple(range(len(fused) + 7))  # all 39 blocks of B5
+    with torch.no_grad():
+        want = model.eval()(x, capture=capture)
+        got_out = target.model(x, capture=capture)
+    # the same float32 arithmetic on the same weights (kernel 2 fp32, cuDNN, TF32 off):
+    # 1e-4 of each output's largest magnitude
+    errs = {"logits": (got_out[0], want[0])}
+    errs.update({k: (got_out[1][k], v) for k, v in want[1].items()})
+    errs = {k: float((a.float() - b.float()).abs().max()) / (1e-6 + float(b.abs().max()))
+            for k, (a, b) in errs.items()}
+    worst = max(errs, key=errs.get)
+    check(len(errs) == 40 and errs[worst] <= 1e-4,
+          f"the C-dissect target differs from the trained model in fp32 at {worst}: {errs[worst]}")
+    row = {"eval_kernel2_launches": launches, "eval_kernel2_dtype": "bfloat16",
+           "checkpoint_bytes": os.path.getsize(path), "checkpoint_save_s": save_s,
+           "target_max_rel_err": errs[worst], "target_worst": worst,
+           "logit_range": [float(want[0].min()), float(want[0].max())]}
+    say(f"[finetune] eval batch of the trained model: kernel 2 launched {launches} times, bf16; "
+        f"checkpoint {row['checkpoint_bytes']} bytes written in {save_s:.2f} s, loaded as the "
+        f"breastclip_classifier target (fp32): state dict equal; its logits and 39 pooled "
+        f"blocks vs the trained model computing in fp32: max err {errs[worst]:.3g} of the "
+        f"largest entry ({worst}; tol 1e-4); logits in {row['logit_range']}")
+    return row
+
+
+def ft_end_to_end(device, pool, work):
+    """(c): do_experiments at full width on synthetic mammogram PNGs, one epoch."""
+    import pandas as pd
+    import torch
+    from PIL import Image
+
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+    from mammodissect_torch.train.experiments import (
+        FinetuneConfig,
+        checkpoint_path,
+        do_experiments,
+    )
+
+    root = os.path.join(work, "pngs")
+    os.makedirs(root)
+    rng = np.random.default_rng(6)
+    rows = []
+    t0 = time.perf_counter()
+    for i in range(FT_TRAIN + FT_VALID):
+        Image.fromarray(pool[i % len(pool), :, :, 0]).save(os.path.join(root, f"m{i}.png"))
+        rows.append({"image_path": f"m{i}.png", "Mass": int(rng.random() < 0.35),
+                     "split": "training" if i < FT_TRAIN else "test"})
+    rows[FT_TRAIN]["Mass"], rows[FT_TRAIN + 1]["Mass"] = 0, 1  # both classes in valid
+    pd.DataFrame(rows).to_csv(os.path.join(root, "meta.csv"), index=False)
+    write_s = time.perf_counter() - t0
+    cfg = FinetuneConfig(csv_file=os.path.join(root, "meta.csv"), data_dir=root, dataset="vindr",
+                         label="Mass", img_size=IMAGE_HW, epochs=1, weighted_BCE="y",
+                         BCE_weights={"fold0": FT_POS_WEIGHT}, seed=7, device=device.type,
+                         checkpoints=os.path.join(work, "ck"),
+                         output_path=os.path.join(work, "out"),
+                         tensorboard_path=os.path.join(work, "tb"))
+    logs = []
+    fused_expand_dw.launches = 0
+    soft_wpmi_gather_logsum.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    oof = do_experiments(cfg, log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches}
+    eval_batches = (FT_VALID + FT_TRAIN) // FT_BATCH  # the valid fold + the train-eval pass
+    timing = [l for l in logs if l.startswith("[time] epoch 1: ")]
+    check(len(timing) == 1, f"do_experiments logged no timing line: {logs}")
+    split = {k: float(v) for k, v in re.findall(r"(\w+) ([\d.]+) s", timing[0])}
+    ckpt = checkpoint_path(cfg)
+    oof_csv = os.path.join(cfg.output_path, "oof_predictions.csv")
+    check(os.path.exists(ckpt), f"do_experiments wrote no checkpoint at {ckpt}: {logs}")
+    check(os.path.exists(oof_csv) and len(oof) == FT_VALID, "no out-of-fold CSV")
+    check(bool(np.isfinite(oof["prediction"].values).all()), "non-finite out-of-fold predictions")
+    check(launches["mbconv"] == 32 * eval_batches,
+          f"do_experiments launched kernel 2 {launches['mbconv']} times, expected "
+          f"{32 * eval_batches} (32 an eval batch, none in train steps)")
+    row = {"train_images": FT_TRAIN, "valid_images": FT_VALID, "png_write_s": write_s,
+           "wall_s": wall, "seconds": split, "launches": launches,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "logs": [l for l in logs if l.startswith(("epoch", "[time]", "[cv]"))]}
+    say(f"[finetune] do_experiments, one epoch ({FT_TRAIN} train + {FT_VALID} valid PNGs at "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]}, label Mass, train-eval pass on): {wall:.2f} s wall, of "
+        f"which host loading and augmentation {split.get('data', 0.0):.2f} s, train_batch "
+        f"{split.get('train_batch', 0.0):.2f} s, eval_batch {split.get('eval_batch', 0.0):.2f} s; "
+        f"peak {row['max_memory_allocated_bytes'] / 2**30:.2f} GiB; launches {launches}; "
+        f"wrote {os.path.basename(ckpt)} and oof_predictions.csv; {row['logs']}")
+    return row
+
+
+def ft_card_vs_cpu():
+    """(d): three fp32 train steps of the test arch at 64x48 on the card and on the CPU
+    (TF32 off, set by the entry points' policy). The project BatchNorm biases are
+    frozen in both: a batch-statistics BatchNorm after the next 1x1 convolution
+    removes any shift, so their gradient is rounding noise, which Adam would turn into
+    steps of +-lr whose sign differs between any two implementations."""
+    import torch
+
+    from mammodissect_torch.train.experiments import FinetuneConfig
+
+    cfg = FinetuneConfig(arch="t_test_ft", img_size=(64, 48), dtype="float32", pad_mode="same",
+                         bn_momentum=0.9, lr=1e-3, seed=8)
+    rng = np.random.default_rng(9)
+    batches = [(rng.integers(0, 256, size=(FT_BATCH, 64, 48, 1), dtype=np.uint8),
+                (rng.random(FT_BATCH) < 0.5).astype(np.float32), n) for n in (8, 8, 5)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = _ft_trainer(cfg, torch.device(dev), warmup_steps=1, total_steps=10,
+                         shift_invariant_frozen=True)
+        runs[dev] = (tr.model, [tr.train_batch(*b) for b in batches])
+    (cpu, cpu_losses), (gpu, gpu_losses) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
+    cpu_state, gpu_state = cpu.state_dict(), gpu.state_dict()
+    # tolerance 1e-5 + 1e-3 of each tensor's largest entry: fp32 convolutions summed in
+    # another order, then Adam's first, sign-like steps; the atol covers statistics that
+    # are 0 up to rounding (the running mean after a BatchNorm whose bias is 0)
+    ratio = {k: float((gpu_state[k].cpu() - v).abs().max() / (1e-5 + 1e-3 * v.abs().max()))
+             for k, v in cpu_state.items() if v.is_floating_point()}
+    worst = max(ratio, key=ratio.get)
+    check(loss_err <= 1e-4, f"card vs CPU: losses {gpu_losses} vs {cpu_losses}")
+    check(ratio[worst] <= 1.0, f"card vs CPU: {worst} is {ratio[worst]:.3g} x its tolerance")
+    say(f"[finetune] card vs CPU, 3 fp32 train steps of t_test_ft at 64x48 (TF32 off): losses "
+        f"{[round(l, 6) for l in gpu_losses]} vs {[round(l, 6) for l in cpu_losses]} (max rel "
+        f"err {loss_err:.3g}, tol 1e-4); weights and statistics within {ratio[worst]:.3g} of "
+        f"their tolerance 1e-5 + 1e-3 max|x| (worst {worst})")
+    return {"loss_max_rel_err": loss_err, "state_worst_share_of_tol": ratio[worst],
+            "worst": worst}
+
+
+def phase_finetune(device, pool):
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    remat, _ = ft_train_steps(device, pool, remat=True)
+    torch.cuda.empty_cache()
+    plain, trainer = ft_train_steps(device, pool, remat=False)
+    check(abs(remat["first_loss"] - plain["first_loss"]) <= 1e-3 * abs(plain["first_loss"]),
+          f"remat changed the first loss: {remat['first_loss']} vs {plain['first_loss']}")
+    check(remat["max_memory_allocated_bytes"] < plain["max_memory_allocated_bytes"],
+          "remat did not lower the peak memory")
+    say(f"[finetune] remat: first loss {remat['first_loss']:.6f} vs {plain['first_loss']:.6f} "
+        f"(tol 1e-3 relative: the same weights and masks, bf16 convolutions whose algorithm "
+        f"cuDNN may choose again); peak {remat['max_memory_allocated_bytes'] / 2**30:.2f} vs "
+        f"{plain['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+        f"{remat['ms_per_step']:.2f} vs {plain['ms_per_step']:.2f} ms a step")
+    evaluated = ft_eval_and_checkpoint(device, pool, trainer, work)
+    del trainer
+    torch.cuda.empty_cache()
+    e2e = ft_end_to_end(device, pool, work)
+    torch.cuda.empty_cache()
+    agree = ft_card_vs_cpu()
+    return {"train": plain, "train_remat": remat, "eval": evaluated, "end_to_end": e2e,
+            "card_vs_cpu": agree}
+
+
 def main():
     import torch
 
@@ -669,6 +962,9 @@ def main():
     agreement = phase_agreement()
     c_dissect = phase_c_dissect(device, pool, dissector)
     wire = phase_packed_wire(device, pool, dissector)
+    del dissector
+    torch.cuda.empty_cache()
+    finetune = phase_finetune(device, pool)
 
     per_forward = lambda key: sum(r[key] * r["blocks"] for r in mbconv)  # noqa: E731
     t_bytes_share = sum(r["bound_ms"] * r["blocks"] for r in mbconv if r["bound_by"] == "bytes")
@@ -677,7 +973,9 @@ def main():
          "source": "mammodissect_torch/csrc/wpmi_gather_logsum.cu",
          "replaces": "mammodissect/ops/pallas_wpmi.py:81",
          "launches": main_path["launches"]["wpmi"],
-         "launches_c_dissect": c_dissect["launches"]["wpmi"], "max_abs_err": wpmi["max_abs_err"],
+         "launches_c_dissect": c_dissect["launches"]["wpmi"],
+         "launches_finetune": finetune["end_to_end"]["launches"]["wpmi"],
+         "max_abs_err": wpmi["max_abs_err"],
          # ms and wrapper_ms: through the wrapper (the first version's span); launch_ms: alone
          "ms": wpmi["ms"], "wrapper_ms": wpmi["ms"], "launch_ms": wpmi["launch_ms"],
          "plain_ms": wpmi["plain_ms"], "bound_ms": wpmi["bound_ms"],
@@ -687,6 +985,8 @@ def main():
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
          "launches": main_path["launches"]["mbconv"],
          "launches_c_dissect": c_dissect["launches"]["mbconv"],
+         # the end-to-end fine-tune: 32 an eval batch (validation, train-eval), 0 in train steps
+         "launches_finetune": finetune["end_to_end"]["launches"]["mbconv"],
          "max_abs_err": max(r["max_abs_err_bf16"] for r in mbconv),
          # one forward's 32 launches at the main path's batch
          "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
@@ -704,6 +1004,8 @@ def main():
     say(f"[done] torch {torch.__version__}, CUDA {torch.version.cuda}, build {build_s:.2f} s, "
         f"agreement {agreement['top1_agreement']:.4f}, C-dissect {c_dissect['img_per_s']:.2f} img/s, "
         f"wire off/on/on/off {[round(r['img_per_s'], 2) for r in wire['runs']]} img/s, "
+        f"fine-tune {finetune['train']['ms_per_step']:.2f} ms a step (remat "
+        f"{finetune['train_remat']['ms_per_step']:.2f}), "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

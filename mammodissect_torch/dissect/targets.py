@@ -140,7 +140,7 @@ def _breastclip_classifier(ckpt_path: Optional[str] = None,
     (`Classifiers/models/breast_clip_classifier.py:6-81`; the hooks still target the
     encoder's `_blocks`, `run_clipdissect.sh:12-36`), float32 as in the JAX package.
     Loads the Mammo-CLIP encoder from `ckpt_path`, then the fine-tuned `.pth` over
-    it when given."""
+    it when given (the reference's, or one `train.checkpoints` wrote)."""
     take_kwargs(kw, ("image_shape",), "breastclip_classifier")
     variant = arch_variant(arch)
     if variant.startswith("efficientnetv2"):
@@ -149,8 +149,9 @@ def _breastclip_classifier(ckpt_path: Optional[str] = None,
     if finetuned_ckpt and os.path.isdir(finetuned_ckpt):
         raise NotImplementedError(
             f"finetuned_ckpt {finetuned_ckpt!r} is an orbax directory, a checkpoint of the "
-            "JAX package's trainer; the port loads torch .pth files (its own fine-tuning "
-            "and checkpoints are roadmap item 12)")
+            "JAX package's trainer, which cannot be read without jax; the port loads torch "
+            ".pth files, such as those its own fine-tuning writes "
+            "(python -m mammodissect_torch.cli.finetune)")
     dev = resolve_device(device)
     module = _random(BreastClipClassifierModule(variant=variant, n_class=num_class,
                                                 freeze_encoder=arch_is_linear_probe(arch)), seed)

@@ -6,13 +6,17 @@
 image encoder ('-detect' tower, average-pooled) and a linear head. Its submodules
 carry the reference's names, `image_encoder.*` and `classifier.fc.*`, so a
 fine-tuned `.pth` loads with `load_state_dict` (`convert.load_classifier_checkpoint`).
-Compute dtype float32 by default, as in the JAX package. Eval only: training
-(`MammoEfficientNetModule`, frozen-parameter labels) belongs to fine-tuning.
+Compute dtype float32 by default, as in the JAX package (the C-dissect target).
+Fine-tuning builds it with float32 master weights and bf16 compute
+(`param_dtype=torch.float32, dtype=torch.bfloat16`), trains it in training mode
+(batch-statistics BatchNorm, drop-connect from a generator, optional remat), and
+freezes the encoder of '*_lp' archs with `frozen_param_labels`.
+`MammoEfficientNetModule` is not ported.
 """
 from __future__ import annotations
 
 import re
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,19 +32,26 @@ class BreastClipClassifierModule(nn.Module):
     [B, n_class], or (logits, {"blocks.i": pooled [B, C_i] float32}) with a capture.
     `freeze_encoder` ('*_lp' linear-probe archs) keeps the encoder in eval mode
     when the module is put in training mode, as the reference's
-    `MammoClassification.train()` does (`model/image_classification.py:50-61`)."""
+    `MammoClassification.train()` does (`model/image_classification.py:50-61`).
+    `dtype` is the compute dtype, `param_dtype` the storage dtype (default:
+    `dtype`); `bn_momentum`, `pad_mode` and `remat` go to the encoder."""
 
     def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 3,
                  n_class: int = 1, freeze_encoder: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, param_dtype: Optional[torch.dtype] = None,
+                 bn_momentum: float = 0.99, pad_mode: str = "static", remat: bool = False):
         super().__init__()
         self.freeze_encoder = freeze_encoder
         # the reference rebuilds the '-detect' encoder from the CLIP checkpoint's
         # config and feeds it RGB copies of the grayscale mammograms: 3 channels
-        self.image_encoder = EfficientNetMammo(variant=variant, in_channels=in_channels,
-                                               pooling="avg", dtype=dtype)
+        self.image_encoder = EfficientNetMammo(
+            variant=variant, in_channels=in_channels, pooling="avg", dtype=dtype,
+            param_dtype=param_dtype, bn_momentum=bn_momentum, pad_mode=pad_mode, remat=remat)
         self.classifier = LinearClassifier(self.image_encoder.out_dim, n_class)
-        self.classifier.to(dtype)
+        param_dtype = dtype if param_dtype is None else param_dtype
+        self.classifier.to(param_dtype)
+        if param_dtype != dtype:
+            self.classifier.fc.compute_dtype = dtype
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -49,14 +60,27 @@ class BreastClipClassifierModule(nn.Module):
         return self
 
     def encode_image(self, images: torch.Tensor, capture: Sequence[int] = (),
-                     pool_mode: str = "avg"):
-        return self.image_encoder(images, capture=capture, pool_mode=pool_mode)
+                     pool_mode: str = "avg", generator: Optional[torch.Generator] = None):
+        return self.image_encoder(images, capture=capture, pool_mode=pool_mode,
+                                  generator=generator)
 
     def forward(self, images: torch.Tensor, capture: Sequence[int] = (),
-                pool_mode: str = "avg"):
-        pooled, captured = self.encode_image(images, capture=capture, pool_mode=pool_mode)
+                pool_mode: str = "avg", generator: Optional[torch.Generator] = None):
+        """`generator` draws the drop-connect masks of a training forward."""
+        pooled, captured = self.encode_image(images, capture=capture, pool_mode=pool_mode,
+                                             generator=generator)
         logits = self.classifier(pooled)
         return (logits, captured) if capture else logits
+
+
+def frozen_param_labels(module: nn.Module, freeze_encoder: bool) -> Dict[str, str]:
+    """{parameter name: "frozen" | "train"}: the encoder's parameters are frozen when
+    linear-probing, everything else trains (the JAX package's optax label tree;
+    `train.trainer.make_optimizer` gives frozen parameters no update, no weight
+    decay and no Adam state, as the reference's requires_grad=False at
+    `breast_clip_classifier.py:41-49`)."""
+    return {name: "frozen" if freeze_encoder and name.startswith("image_encoder.") else "train"
+            for name, _ in module.named_parameters()}
 
 
 def arch_is_linear_probe(arch: str) -> bool:

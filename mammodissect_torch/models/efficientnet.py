@@ -7,32 +7,46 @@
 - The public input is NHWC, as in the JAX package; inside, the tower runs NCHW
   tensors in channels_last memory (an NHWC buffer), which is what cuDNN prefers
   and what the MBConv kernel reads directly.
-- Padding replays the reference's static TF-SAME chain traced at the variant's
-  canonical resolution (456 for B5) with `F.pad` before each conv; at 1520x912
-  that chain differs from true SAME by one pixel at some strided convs, as in
-  the reference (`_paddings`).
-- Every stride-1 MBConv block with an expansion runs its front half (1x1 expand
-  -> BN -> SiLU -> depthwise -> BN -> SiLU) through `ops.cuda_mbconv.fused_expand_dw`,
-  the CUDA kernel on the GPU; strided and expand-1 blocks use `F.conv2d`.
+- Padding (`F.pad` before each conv): `pad_mode="static"` (default) replays the
+  reference's static TF-SAME chain traced at the variant's canonical resolution
+  (456 for B5); at 1520x912 that chain differs from true SAME by one pixel at
+  some strided convs, as in the reference (`_paddings`). `pad_mode="same"` is true
+  TF-SAME computed from the actual input size (toy geometries far from the chain).
+- In eval, every stride-1 MBConv block with an expansion runs its front half (1x1
+  expand -> BN -> SiLU -> depthwise -> BN -> SiLU) through
+  `ops.cuda_mbconv.fused_expand_dw`, the CUDA kernel on the GPU; strided and
+  expand-1 blocks use `F.conv2d`.
+- Training (fine-tuning): every block takes the unfused path on `F.conv2d` with
+  autograd, chosen on purpose: the fused front folds the BatchNorms' running
+  statistics, and training normalizes by batch statistics (BatchNorm2d's flax
+  rule). Drop-connect masks come from the `generator` passed to `forward`, drawn
+  before each block; `remat` recomputes each block in the backward
+  (`torch.utils.checkpoint`) from the same mask, and the recompute leaves the
+  running statistics alone.
+- `dtype` is the compute dtype of the convolutions; `param_dtype` (default: the
+  same) the dtype they are stored in. Fine-tuning keeps float32 master weights
+  and computes in bf16; eval then folds the fused front's weights to bf16 too, so
+  kernel 2 runs its bf16 instantiation.
 - `capture` pools the named blocks' outputs in float32 as the forward passes them.
-- Eval only: a block with the fused front half raises in training mode (it folds
-  the BatchNorms' running statistics). Training-mode BatchNorm, FusedMBConv (V2),
-  the space-to-depth stem and true-SAME padding are not ported yet.
+- FusedMBConv (V2) and the space-to-depth stem are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mammodissect_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
     GeM,
     drop_connect,
+    drop_connect_mask,
     round_filters,
     round_repeats,
     squeeze_excite,
@@ -114,9 +128,9 @@ def _pad(x: torch.Tensor, pad: Pad2d) -> torch.Tensor:
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck: expand (1x1) -> depthwise (kxk) -> SE -> project
     (1x1), skip + drop-connect when stride 1 and channels match
-    (`efficientnet_custom.py:36-140`)."""
+    (`efficientnet_custom.py:36-140`). `bn_momentum` is flax's (0.99)."""
 
-    def __init__(self, args: BlockArgs):
+    def __init__(self, args: BlockArgs, bn_momentum: float = 0.99):
         super().__init__()
         self.args = args
         c_in = args.input_filters
@@ -124,7 +138,7 @@ class MBConvBlock(nn.Module):
         k = args.kernel_size
 
         def bn(c):
-            return BatchNorm2d(c, eps=BN_EPS, momentum=0.01)
+            return BatchNorm2d(c, eps=BN_EPS, momentum=1.0 - bn_momentum)
 
         if args.expand_ratio != 1:
             self._expand_conv = Conv2d(c_in, c_exp, 1, bias=False)
@@ -142,23 +156,32 @@ class MBConvBlock(nn.Module):
         # the fused front half covers what the Pallas kernel covered: stride 1 with
         # an expansion (strided and expand-1 blocks stay on F.conv2d)
         self.fused_front = args.stride == 1 and args.expand_ratio != 1
+        self.residual = (args.id_skip and args.stride == 1
+                         and args.input_filters == args.output_filters)
 
     def _front_sources(self):
         return (self._expand_conv.weight, self._depthwise_conv.weight,
                 *(getattr(bn, name) for bn in (self._bn0, self._bn1)
                   for name in ("weight", "bias", "running_mean", "running_var")))
 
+    def _front_dtype(self) -> torch.dtype:
+        """The front half's compute dtype: the expand conv's."""
+        return self._expand_conv.compute_dtype or self._expand_conv.weight.dtype
+
     def _front_weights(self):
         """(w_exp [Cin, Cexp], s1, b1, w_dw [k, k, Cexp], s2, b2) in the kernel's
-        layout: contiguous weights, BatchNorms folded to float32 scale/bias."""
+        layout: contiguous weights in the compute dtype, BatchNorms folded to float32
+        scale/bias."""
         c_exp, c_in = self._expand_conv.weight.shape[:2]
         k = self.args.kernel_size
+        dtype = self._front_dtype()
         s1, b1 = fold_bn(self._bn0.weight, self._bn0.bias, self._bn0.running_mean,
                          self._bn0.running_var, self._bn0.eps)
         s2, b2 = fold_bn(self._bn1.weight, self._bn1.bias, self._bn1.running_mean,
                          self._bn1.running_var, self._bn1.eps)
-        w_exp = self._expand_conv.weight.reshape(c_exp, c_in).t().contiguous()
-        w_dw = self._depthwise_conv.weight.reshape(c_exp, k, k).permute(1, 2, 0).contiguous()
+        w_exp = self._expand_conv.weight.reshape(c_exp, c_in).t().to(dtype).contiguous()
+        w_dw = (self._depthwise_conv.weight.reshape(c_exp, k, k).permute(1, 2, 0)
+                .to(dtype).contiguous())
         return w_exp, s1, b1, w_dw, s2, b2
 
     def _front_weights_cached(self):
@@ -166,7 +189,7 @@ class MBConvBlock(nn.Module):
 
         The cache holds a detached alias of each source tensor with its version
         counter at preparation (bumped by every in-place write, `load_state_dict`
-        included), and both BN eps. The aliases keep the old storage alive, so a
+        included), both BN eps and the compute dtype. The aliases keep the old storage alive, so a
         source whose storage was replaced (`param.data = ...`, `.to()`,
         `load_state_dict(assign=True)`) can never match an old address, and new
         weights are never served stale; the old storage is released at the next
@@ -176,14 +199,15 @@ class MBConvBlock(nn.Module):
         if self.training or torch.is_grad_enabled():
             return self._front_weights()
         sources = self._front_sources()
+        key = (self._bn0.eps, self._bn1.eps, self._front_dtype())
         cached = self.__dict__.get("_front_cache")
-        fresh = cached is not None and cached[0] == (self._bn0.eps, self._bn1.eps) and all(
+        fresh = cached is not None and cached[0] == key and all(
             t.data_ptr() == held.data_ptr() and t._version == version and t.shape == held.shape
             for t, (held, version) in zip(sources, cached[1]))
         if not fresh:
             with torch.inference_mode(False), torch.no_grad():
-                cached = ((self._bn0.eps, self._bn1.eps),
-                          tuple((t.detach(), t._version) for t in sources), self._front_weights())
+                cached = (key, tuple((t.detach(), t._version) for t in sources),
+                          self._front_weights())
             self.__dict__["_front_cache"] = cached
         return cached[2]
 
@@ -194,17 +218,15 @@ class MBConvBlock(nn.Module):
         x_nhwc = x.to(w_exp.dtype).permute(0, 2, 3, 1)
         return fused_expand_dw(x_nhwc, w_exp, s1, b1, w_dw, s2, b2).permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor, padding: Pad2d, drop_rate: float = 0.0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding: Pad2d, drop_rate: float = 0.0,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`keep`: the drop-connect keep mask [B, 1, 1, 1] of a training forward,
+        drawn by the caller (None keeps every sample). In training the front half is
+        unfused: the fused one folds the BatchNorms' running statistics, and
+        training normalizes by batch statistics."""
         ba = self.args
         inp = x
-        if self.fused_front:
-            if self.training:
-                # the fused front folds the BatchNorms' running statistics; training
-                # mode normalizes by batch statistics instead
-                raise NotImplementedError(
-                    "MBConvBlock in training mode: the fused front half folds BatchNorm "
-                    "running statistics, and training-mode BatchNorm (fine-tuning, "
-                    "roadmap item 12) is not ported yet; call .eval()")
+        if self.fused_front and not self.training:
             p = (ba.kernel_size - 1) // 2
             if padding != ((p, p), (p, p)):
                 raise ValueError(f"stride-1 depthwise padding {padding} is not SAME")
@@ -216,9 +238,23 @@ class MBConvBlock(nn.Module):
         if self.has_se:
             x = squeeze_excite(x, self._se_reduce, self._se_expand)
         x = self._bn2(self._project_conv(x))
-        if ba.id_skip and ba.stride == 1 and ba.input_filters == ba.output_filters:
-            x = drop_connect(x, drop_rate, self.training) + inp
+        if self.residual:
+            x = drop_connect(x, drop_rate, keep) + inp
         return x
+
+
+@contextlib.contextmanager
+def _running_stats_frozen(module: nn.Module):
+    """No BatchNorm2d of `module` updates its running statistics inside: the
+    recompute of a rematerialized block."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_running = True
 
 
 class EfficientNet(nn.Module):
@@ -228,32 +264,47 @@ class EfficientNet(nn.Module):
         (features [B, head_dim, H', W'] NCHW, {"blocks.i": pooled [B, C_i] float32})
 
     head_dim is round_filters(1280): 2048 for B5. `dtype` is the compute dtype of
-    the convolutions (bfloat16 on the main path); BatchNorm stays float32."""
+    the convolutions (bfloat16 on the main path), `param_dtype` the dtype they are
+    stored in (default: `dtype`); BatchNorm stays float32. `bn_momentum` is flax's
+    (0.99), `pad_mode` "static" or "same" (`_paddings`), `remat` recomputes each
+    block in the backward of a training forward."""
 
     def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 1,
-                 drop_connect_rate: float = 0.2, dtype: torch.dtype = torch.float32):
+                 drop_connect_rate: float = 0.2, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None, bn_momentum: float = 0.99,
+                 pad_mode: str = "static", remat: bool = False):
         super().__init__()
+        if pad_mode not in ("static", "same"):
+            raise ValueError(f"pad_mode must be 'static' or 'same', got {pad_mode!r}")
         self.variant = variant
         self.in_channels = in_channels
         self.drop_connect_rate = drop_connect_rate
+        self.pad_mode = pad_mode
+        self.remat = remat
         width, depth, _, _ = EFFICIENTNET_PARAMS[variant]
         self.block_args = expand_block_args(width, depth)
         stem = round_filters(32, width)
         self.out_dim = round_filters(1280, width)
+        bn_torch_momentum = 1.0 - bn_momentum
         self._conv_stem = Conv2d(in_channels, stem, 3, stride=2, bias=False)
-        self._bn0 = BatchNorm2d(stem, eps=BN_EPS, momentum=0.01)
-        self._blocks = nn.ModuleList(MBConvBlock(ba) for ba in self.block_args)
+        self._bn0 = BatchNorm2d(stem, eps=BN_EPS, momentum=bn_torch_momentum)
+        self._blocks = nn.ModuleList(MBConvBlock(ba, bn_momentum) for ba in self.block_args)
         last = self.block_args[-1].output_filters
         self._conv_head = Conv2d(last, self.out_dim, 1, bias=False)
-        self._bn1 = BatchNorm2d(self.out_dim, eps=BN_EPS, momentum=0.01)
+        self._bn1 = BatchNorm2d(self.out_dim, eps=BN_EPS, momentum=bn_torch_momentum)
+        param_dtype = dtype if param_dtype is None else param_dtype
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(dtype)
+            if isinstance(m, Conv2d):
+                m.to(param_dtype)
+                if param_dtype != dtype:
+                    m.compute_dtype = dtype
 
     def _paddings(self, input_hw) -> Tuple[Pad2d, Tuple[Pad2d, ...]]:
-        """(stem padding, per-block depthwise padding) of the reference's static chain.
+        """(stem padding, per-block depthwise padding).
 
-        Replays the construction-time size chain (`efficientnet_custom.py:166-198`:
+        "same": true TF-SAME of each conv at the actual input size (total
+        max((ceil(i/s) - 1) * s + k - i, 0), the odd pixel at the bottom/right).
+        "static": replays the construction-time size chain (`efficientnet_custom.py:166-198`:
         image_size -> ceil(size/stride) after the stem and each strided block). Only
         the stem and strided convs can differ from true SAME (stride-1 SAME padding
         does not depend on the size). A conv whose traced padding would collapse a
@@ -262,11 +313,12 @@ class EfficientNet(nn.Module):
         res = EFFICIENTNET_PARAMS[self.variant][2]  # the canonical resolution it was traced at
         size = (res, res)
         actual = tuple(input_hw)
+        same = self.pad_mode == "same"
 
         def pick(traced, act, k, s):
             pads, new_act = [], []
             for idx in range(2):
-                p = _pad1d(traced[idx], k, s)
+                p = _pad1d(act[idx] if same else traced[idx], k, s)
                 out = (act[idx] + p - k) // s + 1
                 if out < 1:
                     p = _pad1d(act[idx], k, s)
@@ -285,7 +337,10 @@ class EfficientNet(nn.Module):
                 size = (-(-size[0] // ba.stride), -(-size[1] // ba.stride))
         return stem_pad, tuple(pads)
 
-    def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg"):
+    def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg",
+                generator: Optional[torch.Generator] = None):
+        """`generator` draws the drop-connect masks of a training forward (on x's
+        device; None: torch's default generator)."""
         stem_pad, block_pads = self._paddings((int(x.shape[1]), int(x.shape[2])))
         x = x.permute(0, 3, 1, 2)  # NHWC buffer viewed as NCHW channels_last
         # grayscale -> in_channels copies (the reference feeds PIL-RGB copies of the
@@ -296,8 +351,21 @@ class EfficientNet(nn.Module):
         x = F.silu(self._bn0(self._conv_stem(_pad(x, stem_pad))))
         captured: Dict[str, torch.Tensor] = {}
         n_blocks = len(self._blocks)
+        remat = self.remat and torch.is_grad_enabled()
         for i, block in enumerate(self._blocks):
-            x = block(x, block_pads[i], self.drop_connect_rate * i / n_blocks)
+            rate = self.drop_connect_rate * i / n_blocks
+            keep = None
+            if self.training and block.residual and rate > 0.0:
+                # drawn here, outside the checkpointed call: a recompute draws nothing
+                # and sees the same mask (checkpoint restores only the default RNGs)
+                keep = drop_connect_mask(x.shape[0], rate, x.device, generator)
+            if remat:
+                x = checkpoint(block, x, block_pads[i], rate, keep, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                           _running_stats_frozen(b)))
+            else:
+                x = block(x, block_pads[i], rate, keep)
             if i in capture:
                 captured[f"blocks.{i}"] = pool_activation(x.float(), pool_mode)
         x = F.silu(self._bn1(self._conv_head(x)))
@@ -312,16 +380,18 @@ class EfficientNetMammo(EfficientNet):
     timm-backed EfficientNet_Mammo with GeM(p=3). Pooling runs in float32."""
 
     def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 3,
-                 pooling: str = "avg", dtype: torch.dtype = torch.float32):
-        super().__init__(variant=variant, in_channels=in_channels, dtype=dtype)
+                 pooling: str = "avg", dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(variant=variant, in_channels=in_channels, dtype=dtype, **kw)
         if pooling not in ("avg", "gem"):
             raise ValueError(f"pooling must be 'avg' or 'gem', got {pooling!r}")
         self.pooling = pooling
         if pooling == "gem":
             self.pool = GeM()
 
-    def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg"):
-        features, captured = super().forward(x, capture=capture, pool_mode=pool_mode)
+    def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg",
+                generator: Optional[torch.Generator] = None):
+        features, captured = super().forward(x, capture=capture, pool_mode=pool_mode,
+                                             generator=generator)
         if self.pooling == "gem":
             return self.pool(features), captured
         return features.float().mean(dim=(2, 3)), captured

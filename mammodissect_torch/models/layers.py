@@ -3,11 +3,15 @@
 - round_filters / round_repeats: EfficientNet width/depth rounding.
 - squeeze_excite: the SE gate of an MBConv block. Its convs live on the block as
   `_se_reduce` / `_se_expand`, the reference's state-dict names.
-- drop_connect: per-sample stochastic depth on the residual branch.
+- drop_connect_mask / drop_connect: per-sample stochastic depth on the residual
+  branch, the keep mask drawn from an explicit torch.Generator.
 - BatchNorm2d / LayerNorm: normalization computed in float32 whatever the
   activation dtype, with float32 parameters (flax's dtype policy in the JAX
-  package; cuDNN's bf16 batch norm does the same internally).
-- Linear / Conv2d: cast their input to the weight dtype (flax's `dtype=`).
+  package; cuDNN's bf16 batch norm does the same internally). BatchNorm2d trains
+  with flax's rule (batch statistics, biased variance, momentum on the old value).
+- Linear / Conv2d: compute in `compute_dtype`, by default their weight's dtype;
+  the input, weight and bias are cast at use (flax's `dtype=` over `param_dtype=`:
+  float32 master weights with bf16 compute in fine-tuning).
 - GeM, LinearProjectionHead, MLPProjectionHead, LinearClassifier.
 - init_weights: random weights from an explicit torch.Generator.
 """
@@ -62,41 +66,76 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
 
 
-def drop_connect(x: torch.Tensor, rate: float, training: bool,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """Stochastic depth (reference `efficient_net_custom_utils.py:129-150`): per-sample
-    Bernoulli keep with rescaling; identity in eval mode."""
-    if not training or rate == 0.0:
+def drop_connect_mask(batch: int, rate: float, device, generator: torch.Generator | None = None):
+    """The keep mask [batch, 1, 1, 1] (bool) of one drop-connect: each sample kept with
+    probability 1 - rate, drawn from `generator` (which lives on `device`)."""
+    shape = (batch, 1, 1, 1)
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def drop_connect(x: torch.Tensor, rate: float, keep: torch.Tensor | None) -> torch.Tensor:
+    """Stochastic depth (reference `efficient_net_custom_utils.py:129-150`): the kept
+    samples rescaled by 1 / (1 - rate), the others zeroed. `keep` None (eval, or no
+    mask drawn) is the identity."""
+    if keep is None or rate == 0.0:
         return x
-    keep_prob = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d that runs in its weight's dtype (the input is cast)."""
+    """nn.Conv2d that computes in `compute_dtype` (None: its weight's dtype, so a
+    module moved with `.to()` follows); the input, weight and bias are cast at use."""
+
+    compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dtype = self.compute_dtype or self.weight.dtype
+        if dtype == self.weight.dtype:
+            return super().forward(x.to(dtype))
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class Linear(nn.Linear):
-    """nn.Linear that runs in its weight's dtype (the input is cast)."""
+    """nn.Linear that computes in `compute_dtype` (None: its weight's dtype); the
+    input, weight and bias are cast at use."""
+
+    compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dtype = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm over NCHW computed in float32, returned in the input dtype.
-    Momentum 0.01 is flax's 0.99; eps is passed by the caller (1e-3 in EfficientNet)."""
+    """BatchNorm over NCHW computed in float32 and returned in the input dtype, with
+    float32 parameters and statistics. Momentum 0.01 is flax's 0.99; eps is passed by
+    the caller (1e-3 in EfficientNet).
+
+    Eval normalizes by the running statistics. Training normalizes by the batch mean
+    and biased variance over N, H, W and updates the running statistics as flax does:
+    ra = m * ra + (1 - m) * stat with m = 1 - momentum, the variance biased
+    (`F.batch_norm(training=True)` would update it with the unbiased one, n/(n - 1)
+    larger). `update_running` False skips the update: the recompute of a
+    rematerialized block must not apply it twice."""
+
+    update_running: bool = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training-mode BatchNorm is not ported yet")
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, False, 0.0, self.eps)
+        if not self.training:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        # a bf16 input is normalized in float32 inside the kernel (float32 weight)
+        # and saved for the backward in bf16
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.update_running:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(keep).add_(var, alpha=self.momentum)
         return y.to(x.dtype)
 
 

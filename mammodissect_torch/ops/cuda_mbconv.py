@@ -8,7 +8,8 @@ Counterpart of the TPU kernel `mammodissect/ops/pallas_mbconv.py::fused_expand_d
 with the same layouts at the public function (NHWC activations, w_exp [Cin, Cexp],
 w_dw [k, k, Cexp], folded BN scale/bias [Cexp] f32), for k in {3, 5}, any H, W,
 Cin, Cexp, in float32 or bfloat16. `fused_expand_dw` launches the kernel for CUDA
-tensors and runs `expand_dw_plain` for CPU tensors, and only then.
+tensors and runs `expand_dw_plain` for CPU tensors, and only then. The kernel has no
+backward (neither has the TPU kernel): on inputs that need a gradient it raises.
 `fused_expand_dw.launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -50,6 +51,11 @@ def expand_dw_plain(x: torch.Tensor, w_exp: torch.Tensor, bn1_scale: torch.Tenso
 
 
 def _launch(x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias):
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias)):
+        # its output would carry no gradient: refuse rather than train on a silent zero
+        raise RuntimeError("fused_expand_dw: the kernel has no backward; call it under "
+                           "torch.no_grad() or on inputs that need no gradient")
     if x.dim() != 4:
         raise ValueError(f"fused_expand_dw: x must be [B, H, W, Cin], got {tuple(x.shape)}")
     b, h, w, cin = x.shape

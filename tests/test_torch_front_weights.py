@@ -115,16 +115,30 @@ def test_only_inference_caches(mode):
 
 
 def test_fused_front_raises_in_training_mode():
-    """The fused front half folds the BatchNorms' running statistics; in training
-    mode BatchNorm normalizes by batch statistics instead, so the block refuses to
-    run rather than compute something else. Blocks without the fused front reach
-    the training-mode BatchNorm, which refuses too."""
+    """The fused front half folds the BatchNorms' running statistics. In training
+    mode a block with it takes the unfused path instead, normalizing by batch
+    statistics (and updating the running ones), so the fused and the training
+    forward differ; eval mode takes the fused front again. The whole tower trains."""
+    from mammodissect_torch.ops import cuda_mbconv
+
     model = _tower(_random_state(_tower(), seed=5))
     fused = next(block for block in model._blocks if block.fused_front)
-    x = torch.zeros(1, fused.args.input_filters, 5, 5)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, fused.args.input_filters, 5, 5)).astype(np.float32))
     p = (fused.args.kernel_size - 1) // 2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fused.train()(x, ((p, p), (p, p)))
-    with pytest.raises(NotImplementedError):
-        model.train()(_input())
-    fused.eval()(x, ((p, p), (p, p)))  # eval mode runs
+    calls = []
+    plain = cuda_mbconv.expand_dw_plain
+    cuda_mbconv.expand_dw_plain = lambda *a: calls.append(1) or plain(*a)
+    try:
+        running = fused._bn0.running_mean.clone()
+        trained = fused.train()(x, ((p, p), (p, p)))
+        assert calls == [] and not torch.equal(fused._bn0.running_mean, running)
+        with torch.no_grad():
+            evaluated = fused.eval()(x, ((p, p), (p, p)))
+        assert calls == [1]
+    finally:
+        cuda_mbconv.expand_dw_plain = plain
+    assert not torch.allclose(trained, evaluated)
+    features, _ = model.train()(_input())
+    features.sum().backward()
+    assert all(p.grad is not None for p in model.parameters())

@@ -261,3 +261,53 @@ def test_harvest_probe_launches_kernel_2_per_batch(cuda):
     acc, n = harvest_probe(target, probe, ["blocks.3", "blocks.38"], "avg", 4)
     assert n == 10 and acc["blocks.38"].shape == (10, 512)
     assert fused_expand_dw.launches - before == 32 * 3
+
+
+def test_mbconv_kernel_refuses_inputs_that_need_a_gradient(cuda):
+    """The kernel has no backward: on inputs that need a gradient it raises instead of
+    returning an output that carries none; under no_grad it runs."""
+    args = list(_mbconv_args(1, 8, 6, 16, 96, 3, torch.float32, cuda))
+    args[1] = args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_expand_dw(*args)
+    with torch.no_grad():
+        fused_expand_dw(*args)
+
+
+def test_finetune_train_steps_cuda_match_cpu(cuda):
+    """Three fp32 train steps of the test classifier at 64x48 on the card and on the
+    CPU: the same losses (1e-4 relative) and weights and BatchNorm statistics
+    (1e-5 + 1e-3 of each tensor's largest entry). The project BatchNorm biases are
+    frozen: their gradient is rounding noise (a batch-statistics BatchNorm after the
+    next 1x1 convolution removes any shift), whose sign Adam turns into +-lr steps.
+    No kernel-2 launch in a train step, 2 in the eval forward."""
+    from mammodissect_torch.train.experiments import FinetuneConfig, build_model
+    from mammodissect_torch.train.trainer import Trainer, make_optimizer
+
+    cfg = FinetuneConfig(arch="t_test_ft", img_size=(64, 48), dtype="float32",
+                         pad_mode="same", bn_momentum=0.9, lr=1e-3, seed=8)
+    rng = np.random.default_rng(9)
+    batches = [(rng.integers(0, 256, size=(8, 64, 48, 1), dtype=np.uint8),
+                (rng.random(8) < 0.5).astype(np.float32), n) for n in (8, 8, 5)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg)
+        labels = {k: "frozen" if k.endswith("_bn2.bias") else "train"
+                  for k, _ in model.named_parameters()}
+        optimizer, scheduler = make_optimizer(model.to(dev), cfg.lr, cfg.weight_decay, 1, 10,
+                                              param_labels=labels)
+        tr = Trainer(model, optimizer, scheduler, pos_weight=15.57, input_wire="u8",
+                     norm_mean=cfg.mean, norm_std=cfg.std, device=dev)
+        before = fused_expand_dw.launches
+        losses = [tr.train_batch(*b) for b in batches]
+        assert fused_expand_dw.launches == before
+        _, preds = tr.eval_batch(*batches[0])
+        assert fused_expand_dw.launches == before + (2 if dev == "cuda" else 0)
+        runs[dev] = (model.state_dict(), losses, preds)
+    (cpu, cpu_losses, cpu_preds), (gpu, gpu_losses, gpu_preds) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    np.testing.assert_allclose(gpu_preds, cpu_preds, rtol=1e-4, atol=1e-5)
+    for k, v in cpu.items():
+        if v.is_floating_point():
+            np.testing.assert_allclose(gpu[k].cpu().numpy(), v.numpy(), rtol=0,
+                                       atol=1e-5 + 1e-3 * float(v.abs().max()), err_msg=k)

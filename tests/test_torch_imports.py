@@ -1,8 +1,9 @@
 """Import hygiene and device policy of the PyTorch port.
 
 In a fresh interpreter, importing every module of `mammodissect_torch` loads no
-jax, no flax and nothing of the JAX package `mammodissect`. And the entry points
-run on CUDA unless the caller asks for the CPU: without a GPU they raise."""
+jax, no flax, no optax, no orbax and nothing of the JAX package `mammodissect`. And
+the entry points run on CUDA unless the caller asks for the CPU: without a GPU they
+raise."""
 import os
 import subprocess
 import sys
@@ -20,7 +21,7 @@ names = ["mammodissect_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mammodissect"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mammodissect"))
 print(len(names), "modules;", "forbidden:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -37,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "forbidden: []" in proc.stdout
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 35, proc.stdout  # every module of the package was imported
+    assert n_modules >= 48, proc.stdout  # every module of the package was imported
 
 
 @pytest.fixture
@@ -69,3 +70,62 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_cuda):
         run_dissection(DissectConfig(target_model="breastclip", clip_model="breastclip",
                                      resident=True))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _finetune_data(root, n=12, hw=(32, 24)):
+    """n grayscale PNGs and a VinDr-style CSV (split column), labels alternating."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(n):
+        arr = (rng.random(hw) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(root / f"i{i}.png")
+        rows.append({"image_path": f"i{i}.png", "Mass": i % 2,
+                     "split": "training" if i < 8 else "test"})
+    pd.DataFrame(rows).to_csv(root / "meta.csv", index=False)
+    return str(root / "meta.csv")
+
+
+def _finetune_args(tmp_path):
+    csv = _finetune_data(tmp_path)
+    return ["-m", "mammodissect_torch.cli.finetune", "--csv-file", csv, "--data-dir",
+            str(tmp_path), "--label", "Mass", "--arch", "t_test_ft", "--img-size", "32", "24",
+            "--epochs", "1", "--batch-size", "4", "--dtype", "float32", "--pad-mode", "same",
+            "--weighted-BCE", "y", "--checkpoints", str(tmp_path / "ck"),
+            "--output-path", str(tmp_path / "out"), "--tensorboard-path", str(tmp_path / "tb")]
+
+
+def test_finetune_cli_without_device_raises_without_a_gpu(no_cuda, tmp_path):
+    proc = _run(_finetune_args(tmp_path))
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr, proc.stderr
+    assert not (tmp_path / "out").exists() and not (tmp_path / "ck").exists()
+
+
+def test_finetune_cli_runs_on_the_cpu(tmp_path):
+    proc = _run(_finetune_args(tmp_path) + ["--device", "cpu"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "done: 4 out-of-fold predictions" in proc.stdout
+    ckpts = list((tmp_path / "ck").glob("*.pth"))
+    assert [p.name for p in ckpts] == ["mammodissect_clf_seed_10_fold0_best_Mass_ver1.pth"]
+    assert (tmp_path / "out" / "oof_predictions.csv").exists()
+
+
+def test_finetune_entry_points_raise_without_a_gpu(no_cuda, tmp_path):
+    from mammodissect_torch.models.classifier import BreastClipClassifierModule
+    from mammodissect_torch.train.experiments import FinetuneConfig, do_experiments
+    from mammodissect_torch.train.trainer import Trainer, make_optimizer
+
+    cfg = FinetuneConfig(csv_file=_finetune_data(tmp_path), output_path=str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="GPU"):
+        do_experiments(cfg)
+    assert not (tmp_path / "out").exists()
+    model = BreastClipClassifierModule("efficientnet-test")
+    optimizer, _ = make_optimizer(model, 1e-3, 0.0, 0, 10)
+    with pytest.raises(RuntimeError, match="GPU"):
+        Trainer(model, optimizer)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        do_experiments(FinetuneConfig(csv_file=cfg.csv_file, model_parallel=2, device="cpu"))
