@@ -50,6 +50,21 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      time split into host loading/augmentation and train/eval steps, kernel 2
      launched 32 times an eval batch; (d) three fp32 train steps (TF32 off) of the
      test arch at a small geometry on the card and on the CPU agree.
+ 11. G-dissect and zero-shot evaluation with the OpenAI CLIP towers (random weights
+     from seed 0, float32, TF32 off): (a) `run_dissection` staged, target ViT-B/16 with
+     all 12 `layers.i` (9216 units) dissected by ViT-B/16, the concept set
+     BPE-tokenized through the 12-layer causal text tower, soft-WPMI, the `synthetic`
+     probe at 224x224x3 (N = 2048), batch 128, the disk cache in a temp dir: img/s,
+     the seconds of each stage from the run's log lines, peak memory, kernel 1
+     launched once and kernel 2 never; (b) kernel 1 at (a)'s shape (U = 9216, k = 100,
+     N = 2048: the L2 gather design) against its plain version, timed through the
+     wrapper and alone, with its bound; (c) `clip_rn50` as target (conv1 and
+     layer1-4, 3904 units) on the same probe and activation dir: it reuses (a)'s
+     dissector image and text caches; (d) a narrow ViT G-dissect on the card (kernel
+     1) and on the CPU (plain versions): the same top images and >= 0.99 of the top-1
+     concepts; (e) `cli.zseval` with the bf16 BreastClip (B5 at 1520x912) on a `csv:`
+     probe of phase 10's mammogram PNGs (label Mass): a finite AUROC, img/s, kernel 2
+     launched 32 times a batch; then with ViT-B/16 on an RGB folder probe.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -59,6 +74,7 @@ only."""
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -101,6 +117,8 @@ FT_BATCH = 8           # the fine-tune CLI's default batch
 FT_TIMED_STEPS = 10
 FT_POS_WEIGHT = 15.573306370070778  # VinDr Mass (cli.finetune.DEFAULT_BCE_WEIGHTS)
 FT_TRAIN, FT_VALID = 32, 16         # synthetic PNGs of the end-to-end fine-tune
+GD_N, GD_BATCH, GD_SIZE = 2048, 128, 224  # G-dissect: probe images, batch, side
+ZS_RGB_N = 64          # RGB PNGs of the ViT zero-shot run
 
 
 def say(*a):
@@ -229,6 +247,15 @@ def phase_build():
     return seconds
 
 
+def wpmi_bound(u, c, k, n):
+    """Kernel 1's bound: each input read once and the output written once at 3.35
+    TB/s, or 4 fp32 operations a term (x - 1, multiply-add by p, + eps, multiply into
+    the product) at 67 TFLOP/s, whichever is longer."""
+    t_bytes = (n * c * 4 + u * k * 4 + k * 4 + u * c * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = u * k * c * 4 / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_wpmi(n_images, device):
     import torch
 
@@ -278,12 +305,9 @@ def phase_wpmi(n_images, device):
     launch_ms = cuda_ms(lambda: _launch(clip_sm, inds, p_in, 1e-7), reps=20, warmup=2)
     plain_ms = cuda_ms(lambda: soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in), reps=3)
     large_ms = cuda_ms(lambda: soft_wpmi_gather_logsum(large, inds_large, p_in), reps=20, warmup=2)
-    bytes_ = n_images * c * 4 + u * k * 4 + k * 4 + u * c * 4
-    ops = u * k * c * 4  # per term: x - 1, multiply-add by p, + eps, multiply into the product
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
     row = {"shape": {"U": u, "C": c, "k": k, "N": n_images}, "max_abs_err": max(errs.values()),
            "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "gather_design_ms": large_ms,
-           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           **wpmi_bound(u, c, k, n_images)}
     say(f"[kernel 1] U={u} C={c} k={k} N={n_images}: {ms:.4f} ms through the wrapper (first "
         f"version {FIRST_VERSION_MS['wpmi']} ms, same span), launch alone {launch_ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
@@ -857,6 +881,7 @@ def ft_end_to_end(device, pool, work):
           f"do_experiments launched kernel 2 {launches['mbconv']} times, expected "
           f"{32 * eval_batches} (32 an eval batch, none in train steps)")
     row = {"train_images": FT_TRAIN, "valid_images": FT_VALID, "png_write_s": write_s,
+           "png_root": root,
            "wall_s": wall, "seconds": split, "launches": launches,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "logs": [l for l in logs if l.startswith(("epoch", "[time]", "[cv]"))]}
@@ -934,6 +959,251 @@ def phase_finetune(device, pool):
             "card_vs_cpu": agree}
 
 
+def stage_seconds(logs):
+    """{stage: seconds} from the staged run's log lines ("[harvest] ... in 3.1s"): the
+    model builds, the three cache stages, scoring, and the top-k and CSV writing."""
+    out = {}
+    for line in logs:
+        m = re.match(r"\[(target|dissector|harvest|clip-img|clip-txt|scoring|results)\] "
+                     r".* in ([\d.]+)s", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def gdissect_run(cfg, probe, **kw):
+    """One staged `run_dissection` with both kernels' counts zeroed just before and read
+    just after: (DataFrame, logs, wall s, launches, peak bytes)."""
+    import torch
+
+    from mammodissect_torch.dissect.engine import run_dissection
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    fused_expand_dw.launches = 0
+    soft_wpmi_gather_logsum.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the CLIP targets drop num_class, loudly
+        df, _ = run_dissection(cfg, probe=probe, log=logs.append, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches}
+    return df, logs, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def gdissect_full_width(device, work):
+    """(a) and (c): the ViT-B/16 G-dissect at full width, then clip_rn50 as target on the
+    same probe and activation dir."""
+    from mammodissect_torch.data.probes import get_probe
+    from mammodissect_torch.dissect.engine import DissectConfig, read_concepts
+
+    t0 = time.perf_counter()
+    probe_kwargs = {"n": GD_N, "h": GD_SIZE, "w": GD_SIZE, "c": 3}
+    probe = get_probe("synthetic", **probe_kwargs)
+    probe_s = time.perf_counter() - t0
+    n_concepts = len(read_concepts(CONCEPTS))
+    cfg = DissectConfig(target_model="ViT-B/16", clip_model="ViT-B/16",
+                        target_layers=[f"layers.{i}" for i in range(12)], d_probe="synthetic",
+                        probe_kwargs=probe_kwargs, concept_set=CONCEPTS, batch_size=GD_BATCH,
+                        similarity_fn="soft_wpmi", resident=False, device=device.type,
+                        activation_dir=os.path.join(work, "acts"),
+                        result_dir=os.path.join(work, "results"))
+    df, logs, wall, launches, peak = gdissect_run(cfg, probe)
+    stages = stage_seconds(logs)
+    check(len(df) == 12 * 768, f"G-dissect CSV has {len(df)} rows, expected 9216")
+    check(np.isfinite(csv_similarities(df)).all(), "non-finite similarities in the G-dissect CSV")
+    check(launches == {"mbconv": 0, "wpmi": 1},
+          f"G-dissect launches {launches}, expected kernel 1 once and kernel 2 never")
+    check(set(stages) == {"target", "dissector", "harvest", "clip-img", "clip-txt", "scoring",
+                          "results"}, f"G-dissect stage lines missing: {logs}")
+    row = {"images": GD_N, "batch": GD_BATCH, "size": GD_SIZE, "units": len(df),
+           "concepts": n_concepts, "wall_s": wall, "img_per_s": GD_N / wall, "probe_s": probe_s,
+           "stages_s": stages, "other_s": wall - sum(stages.values()),
+           "max_memory_allocated_bytes": peak, "launches": launches}
+    say(f"[g-dissect] ViT-B/16 x 12 layers (9216 units) dissected by ViT-B/16, {n_concepts} "
+        f"BPE concepts, soft-WPMI, fp32, {GD_N} synthetic images at {GD_SIZE}x{GD_SIZE}x3, "
+        f"batch {GD_BATCH}, staged: {wall:.2f} s wall, {row['img_per_s']:.2f} img/s (two "
+        f"ViT-B/16 forwards an image); stages {stages} s, other (cache reads and "
+        f"writes) {row['other_s']:.2f} s; peak {peak / 2**30:.2f} GiB; launches "
+        f"{launches}; probe built in {probe_s:.2f} s (not in the wall)")
+
+    rn_layers = ["conv1", "layer1", "layer2", "layer3", "layer4"]
+    rn_cfg = dataclasses.replace(cfg, target_model="clip_rn50", target_layers=rn_layers)
+    rn_df, rn_logs, rn_wall, rn_launches, rn_peak = gdissect_run(rn_cfg, probe)
+    rn_stages = stage_seconds(rn_logs)
+    check(len(rn_df) == 3904, f"clip_rn50 CSV has {len(rn_df)} rows, expected 3904")
+    check(np.isfinite(csv_similarities(rn_df)).all(), "non-finite similarities (clip_rn50)")
+    check("[clip-img] probe embeddings cached, skipping" in rn_logs
+          and not {"dissector", "clip-txt", "clip-img"} & set(rn_stages),
+          f"clip_rn50 did not reuse the dissector's caches: {rn_logs}")
+    check(rn_launches == {"mbconv": 0, "wpmi": 1}, f"clip_rn50 launches {rn_launches}")
+    rn = {"units": len(rn_df), "wall_s": rn_wall, "img_per_s": GD_N / rn_wall,
+          "harvest_img_per_s": GD_N / rn_stages["harvest"], "stages_s": rn_stages,
+          "max_memory_allocated_bytes": rn_peak, "launches": rn_launches}
+    say(f"[g-dissect] clip_rn50 (conv1, layer1-4: 3904 units) on the same probe and "
+        f"activation dir: {rn_wall:.2f} s wall, stages {rn_stages} s (the ViT-B/16 image "
+        f"and text caches read, not recomputed), peak {rn_peak / 2**30:.2f} GiB, launches "
+        f"{rn_launches}")
+    return row, rn, n_concepts
+
+
+def wpmi_gdissect_shape(device, u, c, k, n):
+    """(b): kernel 1 at the G-dissect shape against its plain version; times and bound."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_wpmi import (
+        _launch,
+        soft_wpmi_gather_logsum,
+        soft_wpmi_gather_logsum_plain,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    clip_sm = torch.softmax(torch.randn((n, c), generator=g) * 4, dim=1).to(device)
+    inds = torch.randint(0, n, (u, k), generator=g, dtype=torch.int32).to(device)
+    p_in = (0.998 - torch.arange(k) / 100 * (0.998 - 0.97)).float().to(device)
+    got = soft_wpmi_gather_logsum(clip_sm, inds, p_in)
+    want = soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 + 1e-5 * want.abs()).all()),
+          f"kernel 1 disagrees at the G-dissect shape: max abs err {float(err.max())}")
+    row = {"shape": {"U": u, "C": c, "k": k, "N": n}, "max_abs_err": float(err.max()),
+           "ms": cuda_ms(lambda: soft_wpmi_gather_logsum(clip_sm, inds, p_in), reps=20, warmup=2),
+           "launch_ms": cuda_ms(lambda: _launch(clip_sm, inds, p_in, 1e-7), reps=20, warmup=2),
+           "plain_ms": cuda_ms(lambda: soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in), reps=3),
+           **wpmi_bound(u, c, k, n)}
+    say(f"[kernel 1] G-dissect shape U={u} C={c} k={k} N={n} (gather design): max abs err "
+        f"{row['max_abs_err']:.3g} (tol 1e-5 + 1e-5|x|); {row['ms']:.4f} ms through the "
+        f"wrapper, launch alone {row['launch_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def gdissect_card_vs_cpu():
+    """(d): a narrow ViT G-dissect (fp32, TF32 off) on the card and on the CPU."""
+    import torch
+
+    from mammodissect_torch.data.probes import get_probe
+    from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
+    from mammodissect_torch.models.clip_vit import OpenAIClip
+
+    narrow = dict(vision_width=128, vision_layers=4, vision_heads=2, text_width=128,
+                  text_layers=2, text_heads=2, embed_dim=64, image_size=64)
+    probe = get_probe("synthetic", n=256, h=64, w=64, c=3, seed=1)
+    work = tempfile.mkdtemp(prefix="chip_smoke_gd_agree_")
+    dfs = {}
+    for dev in ("cpu", "cuda"):
+        clip = OpenAIClip("ViT-B/16", seed=1, device=dev, **narrow)
+        cfg = DissectConfig(target_model="ViT-B/16", clip_model="ViT-B/16",
+                            target_layers=[f"layers.{i}" for i in range(4)], d_probe="synthetic",
+                            concept_set=CONCEPTS, batch_size=64, device=dev,
+                            activation_dir=os.path.join(work, dev, "acts"),
+                            result_dir=os.path.join(work, dev, "results"))
+        dfs[dev], _ = run_dissection(cfg, probe=probe, target=clip, dissector=clip,
+                                     log=lambda *_: None)
+    torch.cuda.synchronize()
+    top = {k: [row[0] for row in df["description"]] for k, df in dfs.items()}
+    agree = float(np.mean([a == b for a, b in zip(top["cpu"], top["cuda"])]))
+    images = float(np.mean([a == b for a, b in zip(dfs["cpu"]["images"], dfs["cuda"]["images"])]))
+    say(f"[g-dissect] card vs CPU, narrow ViT (4 x 128, 64x64), 256 images, 512 units, fp32, "
+        f"TF32 off: top-1 concept agreement {agree:.4f}, identical top-image lists {images:.4f}")
+    check(agree >= 0.99, f"G-dissect card vs CPU: top-1 agreement {agree} < 0.99")
+    check(images == 1.0, f"G-dissect card vs CPU: top images differ ({images})")
+    return {"top1_agreement": agree, "top_images_identical": images}
+
+
+def zeroshot_run(argv, work, name):
+    """One `cli.zseval` run on the card with both kernels' counts zeroed just before
+    and read just after: (results, wall s, launches)."""
+    import torch
+
+    from mammodissect_torch.cli import zseval
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+
+    out = os.path.join(work, f"{name}.json")
+    fused_expand_dw.launches = 0
+    soft_wpmi_gather_logsum.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # toy WordPiece vocab
+        rc = zseval.main(argv + ["--device", "cuda", "--output", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"zseval ({name}) exited {rc}")
+    with open(out) as f:
+        results = json.load(f)
+    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches}
+    return results, wall, launches
+
+
+def phase_zeroshot(png_root):
+    """(e): zero-shot with the bf16 BreastClip on the mammogram PNGs, then ViT-B/16 on
+    RGB PNGs in two class folders."""
+    from PIL import Image
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_zs_")
+    meta = os.path.join(png_root, "meta.csv")
+    n_mammo = FT_TRAIN + FT_VALID
+    batch = 32  # the CLI's default
+    results, wall, launches = zeroshot_run(
+        ["--clip_model", "breastclip", "--d_probe", f"csv:{meta}",
+         "--probe_kwargs", json.dumps({"root": png_root, "label_col": "Mass"}),
+         "--dissector_kwargs", json.dumps({"dtype": "bfloat16"}), "--tasks", "Mass"],
+        work, "breastclip")
+    n_batches = -(-n_mammo // batch)
+    auroc = results.get("Mass", {}).get("auroc")
+    check(auroc is not None and np.isfinite(auroc), f"zero-shot breastclip: AUROC {results}")
+    check(launches == {"mbconv": 32 * n_batches, "wpmi": 0},
+          f"zero-shot breastclip launched {launches}, expected kernel 2 {32 * n_batches} times")
+    mammo = {"images": n_mammo, "batch": batch, "wall_s": wall, "img_per_s": n_mammo / wall,
+             "auroc": auroc, "launches": launches}
+    say(f"[zero-shot] breastclip (B5 bf16 at {IMAGE_HW[0]}x{IMAGE_HW[1]}, random weights), "
+        f"{n_mammo} mammogram PNGs (csv probe, label Mass), batch {batch}: AUROC {auroc:.4f}, "
+        f"{wall:.2f} s wall with the model build ({mammo['img_per_s']:.2f} img/s); launches "
+        f"{launches} ({launches['mbconv'] // n_batches} a batch)")
+
+    rng = np.random.default_rng(12)
+    root = os.path.join(work, "rgb")
+    for i in range(ZS_RGB_N):
+        d = os.path.join(root, "0_no_mass" if i % 2 == 0 else "1_mass")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, size=(GD_SIZE, GD_SIZE, 3), dtype=np.uint8)).save(
+            os.path.join(d, f"{i}.png"))
+    results, wall, launches = zeroshot_run(
+        ["--clip_model", "ViT-B/16", "--d_probe", f"folder:{root}",
+         "--probe_kwargs", json.dumps({"image_shape": [GD_SIZE, GD_SIZE, 3]}), "--tasks", "Mass"],
+        work, "vit")
+    auroc = results.get("Mass", {}).get("auroc")
+    check(auroc is not None and np.isfinite(auroc), f"zero-shot ViT-B/16: AUROC {results}")
+    check(launches == {"mbconv": 0, "wpmi": 0}, f"zero-shot ViT-B/16 launched {launches}")
+    vit = {"images": ZS_RGB_N, "batch": batch, "wall_s": wall, "img_per_s": ZS_RGB_N / wall,
+           "auroc": auroc, "launches": launches}
+    say(f"[zero-shot] ViT-B/16 (fp32, random weights), {ZS_RGB_N} RGB PNGs at "
+        f"{GD_SIZE}x{GD_SIZE} in two class folders: AUROC {auroc:.4f}, {wall:.2f} s wall with "
+        f"the model build ({vit['img_per_s']:.2f} img/s); launches {launches}")
+    return {"breastclip": mammo, "vit": vit}
+
+
+def phase_gdissect(device, png_root):
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_gd_")
+    full, rn, n_concepts = gdissect_full_width(device, work)
+    torch.cuda.empty_cache()
+    kernel1 = wpmi_gdissect_shape(device, full["units"], n_concepts, 100, GD_N)
+    agree = gdissect_card_vs_cpu()
+    torch.cuda.empty_cache()
+    zs = phase_zeroshot(png_root)
+    return {"vit": full, "clip_rn50": rn, "kernel1": kernel1, "card_vs_cpu": agree,
+            "zeroshot": zs}
+
+
 def main():
     import torch
 
@@ -965,6 +1235,8 @@ def main():
     del dissector
     torch.cuda.empty_cache()
     finetune = phase_finetune(device, pool)
+    torch.cuda.empty_cache()
+    gdissect = phase_gdissect(device, finetune["end_to_end"]["png_root"])
 
     per_forward = lambda key: sum(r[key] * r["blocks"] for r in mbconv)  # noqa: E731
     t_bytes_share = sum(r["bound_ms"] * r["blocks"] for r in mbconv if r["bound_by"] == "bytes")
@@ -975,11 +1247,16 @@ def main():
          "launches": main_path["launches"]["wpmi"],
          "launches_c_dissect": c_dissect["launches"]["wpmi"],
          "launches_finetune": finetune["end_to_end"]["launches"]["wpmi"],
-         "max_abs_err": wpmi["max_abs_err"],
+         "launches_gdissect": gdissect["vit"]["launches"]["wpmi"],
+         "launches_gdissect_clip_rn50": gdissect["clip_rn50"]["launches"]["wpmi"],
+         "launches_zeroshot": gdissect["zeroshot"]["breastclip"]["launches"]["wpmi"],
+         "max_abs_err": max(wpmi["max_abs_err"], gdissect["kernel1"]["max_abs_err"]),
          # ms and wrapper_ms: through the wrapper (the first version's span); launch_ms: alone
          "ms": wpmi["ms"], "wrapper_ms": wpmi["ms"], "launch_ms": wpmi["launch_ms"],
          "plain_ms": wpmi["plain_ms"], "bound_ms": wpmi["bound_ms"],
-         "bound_by": wpmi["bound_by"], "library_ms": None},
+         "bound_by": wpmi["bound_by"], "library_ms": None,
+         # at the G-dissect shape (U = 9216 ViT-B/16 units, N = 2048: the gather design)
+         "gdissect": gdissect["kernel1"]},
         {"name": "fused_expand_dw", "route": "cuda",
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
@@ -987,6 +1264,9 @@ def main():
          "launches_c_dissect": c_dissect["launches"]["mbconv"],
          # the end-to-end fine-tune: 32 an eval batch (validation, train-eval), 0 in train steps
          "launches_finetune": finetune["end_to_end"]["launches"]["mbconv"],
+         "launches_gdissect": gdissect["vit"]["launches"]["mbconv"],
+         # zero-shot with the bf16 BreastClip: 32 a batch in embed_images
+         "launches_zeroshot": gdissect["zeroshot"]["breastclip"]["launches"]["mbconv"],
          "max_abs_err": max(r["max_abs_err_bf16"] for r in mbconv),
          # one forward's 32 launches at the main path's batch
          "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
@@ -1006,6 +1286,7 @@ def main():
         f"wire off/on/on/off {[round(r['img_per_s'], 2) for r in wire['runs']]} img/s, "
         f"fine-tune {finetune['train']['ms_per_step']:.2f} ms a step (remat "
         f"{finetune['train_remat']['ms_per_step']:.2f}), "
+        f"G-dissect {gdissect['vit']['img_per_s']:.2f} img/s, "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -6,8 +6,8 @@ tensor functions, an explicit `device` and explicit `torch.Generator`s. The two
 hand-written TPU kernels of the JAX package are hand-written CUDA kernels here
 (`csrc/`, built for sm_90a on first use by `ops/kernels.py`).
 
-Entry points (`cli.dissect`, `dissect.engine.run_dissection`, the dissector
-factory) run on the GPU unless the caller asks for the CPU (`device="cpu"` /
+Entry points (`cli.dissect`, `cli.finetune`, `cli.zseval`,
+`dissect.engine.run_dissection`, the dissector and target factories) run on the GPU unless the caller asks for the CPU (`device="cpu"` /
 `--device cpu`); without a GPU they raise instead of falling back.
 
 This package imports torch and never jax, flax or anything of `mammodissect`.

@@ -10,8 +10,15 @@ C-Mammo-CLIP Dissect of a fine-tuned classifier, staged through the disk cache:
   python -m mammodissect_torch.cli.dissect --target_model breastclip_classifier \
     --finetuned_img_classifier_chkpt model.pth --clip_model breastclip ...
 
+G-dissect, CLIP's ViT layers dissected by CLIP (`run_og_clip.sh:8`; `--naming og`
+and `--num_top_concepts 1` are the og and clip-neuron modes):
+  python -m mammodissect_torch.cli.dissect --target_model ViT-B/16 --clip_model ViT-B/16 \
+    --target_layers 'vision_model.encoder.layers[0],...' --d_probe folder:images/
+
 `--device` defaults to cuda and raises without a GPU; `--device cpu` runs on the CPU.
-Targets: breastclip, breastclip_classifier, tiny_cnn; dissectors: breastclip, random.
+Targets: breastclip, breastclip_classifier, tiny_cnn, the CLIP ViTs (ViT-B/32, ViT-B/16,
+ViT-L/14, clip, clip-cub, clip-bloodmnist) and ModifiedResNets (clip_rn50, clip_rn101,
+clip_rn50x4); dissectors: breastclip, the CLIP ViTs, random.
 """
 from __future__ import annotations
 
@@ -31,10 +38,10 @@ CONCEPT_SET = (Path(__file__).resolve().parents[2] / "mammodissect" / "assets" /
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Mammo-CLIP Dissect (PyTorch, CUDA)")
     p.add_argument("--clip_model", type=str, default="breastclip",
-                   help="dissector: breastclip | random (the CLIP dissectors are not "
-                        "ported yet)")
+                   help="dissector: breastclip | ViT-B/16 etc. | random")
     p.add_argument("--target_model", type=str, default="breastclip",
-                   help="target model: breastclip | breastclip_classifier | tiny_cnn")
+                   help="target model: breastclip | breastclip_classifier | tiny_cnn | "
+                        "ViT-B/16 etc. | clip_rn50 etc.")
     p.add_argument("--target_layers", type=str, default="blocks.0",
                    help="comma-separated; reference spellings like "
                         "'image_encoder._blocks[17]' are accepted")

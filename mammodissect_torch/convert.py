@@ -9,6 +9,12 @@
   weights through both packages.
 - `classifier_from_jax(variables)`: the JAX package's BreastClipClassifierModule
   variables -> the port's classifier state dict (`image_encoder.*`, `classifier.fc.*`).
+- `clip_from_jax(variables)`: the JAX package's ClipModule params -> the port's
+  ClipModule state dict in OpenAI's names (the inverse of `clip_torch_to_flax`);
+  vision-only and text-only trees give the entries of their tower.
+- `modified_resnet_from_jax(variables)`: the JAX package's ModifiedResNet
+  {"params", "batch_stats"} -> the port's ModifiedResNet state dict (OpenAI's
+  names without `visual.`).
 - `load_breastclip_checkpoint(path, module)`: a reference Mammo-CLIP `.tar`
   ({"model": state_dict, "config": ...}) into a BreastClipModule. The names already
   match; the loader strips DDP's `module.` prefix and maps the text tower's
@@ -127,6 +133,74 @@ def classifier_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd = efficientnet_from_jax(params["image_encoder"]["backbone"],
                                stats["image_encoder"]["backbone"], prefix="image_encoder.")
     _linear(sd, "classifier.fc", params["classifier"]["fc"])
+    return sd
+
+
+def _clip_blocks(sd, tower: Mapping, dst: str) -> None:
+    i = 0
+    while f"resblocks_{i}" in tower:
+        p, d = tower[f"resblocks_{i}"], f"{dst}.resblocks.{i}"
+        sd[f"{d}.attn.in_proj_weight"] = _dense(p["attn_in"]["kernel"])
+        sd[f"{d}.attn.in_proj_bias"] = _t(p["attn_in"]["bias"])
+        _linear(sd, f"{d}.attn.out_proj", p["attn_out"])
+        _linear(sd, f"{d}.mlp.c_fc", p["mlp_fc"])
+        _linear(sd, f"{d}.mlp.c_proj", p["mlp_proj"])
+        _layer_norm(sd, f"{d}.ln_1", p["ln_1"])
+        _layer_norm(sd, f"{d}.ln_2", p["ln_2"])
+        i += 1
+
+
+def clip_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ClipModule variables {"params": ...} (numpy leaves) -> state dict of the
+    port's ClipModule, OpenAI's names."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    if "visual" in params:
+        v = params["visual"]
+        sd["visual.conv1.weight"] = _conv(v["conv1"]["kernel"])
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            if name in v:
+                sd[f"visual.{name}"] = _t(v[name])
+        _layer_norm(sd, "visual.ln_pre", v["ln_pre"])
+        _layer_norm(sd, "visual.ln_post", v["ln_post"])
+        _clip_blocks(sd, v, "visual.transformer")
+    if "text" in params:
+        t = params["text"]
+        sd["token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
+        sd["positional_embedding"] = _t(t["positional_embedding"])
+        sd["text_projection"] = _t(t["text_projection"])
+        _layer_norm(sd, "ln_final", t["ln_final"])
+        _clip_blocks(sd, t, "transformer")
+    if "logit_scale" in params:
+        sd["logit_scale"] = _t(params["logit_scale"])
+    return sd
+
+
+def modified_resnet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ModifiedResNet variables {"params", "batch_stats"} (numpy leaves) -> state
+    dict of the port's ModifiedResNet."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        sd[f"conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
+        _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    si = 1
+    while f"layer{si}_0" in params:
+        bi = 0
+        while f"layer{si}_{bi}" in params:
+            p, s, dst = params[f"layer{si}_{bi}"], stats[f"layer{si}_{bi}"], f"layer{si}.{bi}"
+            for ci in (1, 2, 3):
+                sd[f"{dst}.conv{ci}.weight"] = _conv(p[f"conv{ci}"]["kernel"])
+                _bn(sd, f"{dst}.bn{ci}", p[f"bn{ci}"], s[f"bn{ci}"])
+            if "downsample_conv" in p:
+                sd[f"{dst}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
+                _bn(sd, f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+            bi += 1
+        si += 1
+    pool = params["attnpool"]
+    sd["attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for side in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(sd, f"attnpool.{side}", pool[side])
     return sd
 
 

@@ -5,8 +5,9 @@ A dissector is a vision-language model that embeds probe images and concept text
   embed_texts(list[str])            -> [C, D] L2-normalized float32
 'breastclip' (`models/breastclip.py`, which registers on first use) also embeds
 uint8 batches on the device and provides the fused and resident M-dissect steps.
-'random' is the deterministic test dissector. The CLIP dissectors (G-dissect)
-are not ported yet."""
+'random' is the deterministic test dissector. The OpenAI CLIP dissectors of
+G-dissect (`ViT-B/32`, `ViT-B/16`, `ViT-L/14`, `clip`, `clip-cub`,
+`clip-bloodmnist`) register when `models/clip_vit.py` is imported."""
 from __future__ import annotations
 
 import hashlib
@@ -71,7 +72,5 @@ def get_dissector(name: str, **kw):
         if name.startswith("breastclip"):
             import mammodissect_torch.models.breastclip  # noqa: F401  (registers)
         elif name.lower().startswith(("vit-", "rn", "clip")):
-            raise NotImplementedError(
-                f"dissector {name!r}: the CLIP dissectors (G-dissect) are not ported yet "
-                "(roadmap item 13)")
+            import mammodissect_torch.models.clip_vit  # noqa: F401  (registers)
     return DISSECTORS.get(name)(**kw)

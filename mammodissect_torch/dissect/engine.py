@@ -126,12 +126,14 @@ def get_save_names(clip_name: str, target_name: str, target_layer: str, d_probe:
                    concept_set: str, pool_mode: str, save_dir: str, prefix: str = ""):
     """Cache-file names, the reference's scheme (`utils.py:54-62`) with the
     experiment prefix the drivers prepend (`describe_broad_neurons.py:90-92`):
-    (target activations, dissector image embeddings, concept text embeddings)."""
+    (target activations, dissector image embeddings, concept text embeddings). A "/"
+    in a model name is dropped ("ViT-B/16" -> "ViT-B16"), for the target as for the
+    dissector."""
     layer = canonical_layer_name(target_layer)
     suffix = PM_SUFFIX[pool_mode]
     # probe specs may embed paths ("folder:/data/probe"); flatten for file names
     d_probe = d_probe.replace("/", "_").replace(":", "_")
-    target = f"{save_dir}/{prefix}{d_probe}_{target_name}_{layer}{suffix}.npy"
+    target = f"{save_dir}/{prefix}{d_probe}_{target_name.replace('/', '')}_{layer}{suffix}.npy"
     clip = f"{save_dir}/{prefix}{d_probe}_{clip_name.replace('/', '')}.npy"
     stem = os.path.splitext(os.path.basename(concept_set))[0]
     text = f"{save_dir}/{prefix}{stem}_{clip_name.replace('/', '')}.npy"
@@ -160,6 +162,13 @@ def _dissector_kwargs(cfg) -> dict:
         dk.setdefault("ckpt_path", cfg.breast_clip_ckpt)
     dk.setdefault("device", cfg.device)
     return dk
+
+
+def _build_dissector(cfg, log):
+    t0 = time.time()
+    dissector = get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+    log(f"[dissector] built {cfg.clip_model} in {time.time() - t0:.2f}s")
+    return dissector
 
 
 def save_activations(cfg, probe=None, target=None, dissector=None,
@@ -191,7 +200,7 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
     if ((missing_layers or clip_missing) and cfg.target_model == "breastclip"
             and cfg.clip_model == "breastclip" and not cfg.target_kwargs
             and not cfg.finetuned_ckpt and target is None and _has_u8(probe)):
-        dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+        dissector = dissector or _build_dissector(cfg, log)
         t0 = time.time()
         acc, embs, n_images = _fused_harvest_embed(dissector, probe, layers, cfg.pool_mode, bs)
         for l in layers:
@@ -207,7 +216,9 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
             kw = dict(ckpt_path=cfg.breast_clip_ckpt, finetuned_ckpt=cfg.finetuned_ckpt,
                       num_class=cfg.num_class, device=cfg.device)
             kw.update(cfg.target_kwargs)
+            t0 = time.time()
             target = get_target_model(cfg.target_model, **kw)
+            log(f"[target] built {cfg.target_model} in {time.time() - t0:.2f}s")
         t0 = time.time()
         acc, n_images = harvest_probe(target, probe, layers, cfg.pool_mode, bs)
         for l in layers:
@@ -218,7 +229,7 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
 
     # stage 2: the dissector's probe embeddings
     if clip_missing:
-        dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+        dissector = dissector or _build_dissector(cfg, log)
         t0 = time.time()
         use_u8 = hasattr(dissector, "embed_images_u8") and _has_u8(probe)
         feats = []
@@ -237,10 +248,11 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
 
     # stage 3: the concepts' text embeddings
     if not os.path.exists(paths["text"]):
-        dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+        dissector = dissector or _build_dissector(cfg, log)
+        t0 = time.time()
         words = read_concepts(cfg.concept_set)
         _atomic_np_save(paths["text"], dissector.embed_texts(words))
-        log(f"[clip-txt] embedded {len(words)} concepts")
+        log(f"[clip-txt] embedded {len(words)} concepts in {time.time() - t0:.2f}s")
     return paths
 
 
@@ -758,7 +770,7 @@ def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=N
             and not cfg.target_kwargs and not cfg.finetuned_ckpt and target is None
             and _has_u8(probe)):
         return None
-    dissector = dissector or get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
+    dissector = dissector or _build_dissector(cfg, log)
     bs = cfg.batch_size
 
     words = read_concepts(cfg.concept_set)
@@ -831,9 +843,13 @@ def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, 
     words = read_concepts(cfg.concept_set)
     layer_names = [canonical_layer_name(l) for l in cfg.target_layers]
     feats_by_layer = {l: np.load(paths[f"target:{l}"]).astype(np.float32) for l in layer_names}
+    t0 = time.time()
     sims = score_all_layers(feats_by_layer, paths["clip"], paths["text"], cfg.similarity_fn,
                             top_k=cfg.top_k, device=device)
+    log(f"[scoring] {sum(s.shape[0] for s in sims.values())} units x {len(words)} concepts "
+        f"in {time.time() - t0:.2f}s")
 
+    t0 = time.time()
     outputs = {"layer": [], "unit": [], "description": [], "similarity": [], "images": []}
     for layer in layer_names:
         sim, target_feats = sims[layer], feats_by_layer[layer]
@@ -850,4 +866,7 @@ def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, 
         outputs["similarity"].extend([row.tolist() for row in top_vals])
         outputs["images"].extend([row.tolist() for row in top_images])
         log(f"[score] {layer}: {n_units} units scored")
-    return write_results(outputs, cfg)
+    df, csv_path = write_results(outputs, cfg)
+    log(f"[results] top concepts and images of {len(df)} units, CSV written in "
+        f"{time.time() - t0:.2f}s")
+    return df, csv_path

@@ -19,7 +19,12 @@ def result_basename(cfg) -> str:
     pretrained = "mammo_pretrained" if cfg.breast_clip_ckpt else "not_mammo_pretrained"
     finetuned = "finetuned_" if cfg.finetuned_ckpt else ""
     probe = cfg.d_probe.split(":")[0]
-    return f"{probe}_{finetuned}{pretrained}_{cfg.target_model}_descriptions"
+    return f"{probe}_{finetuned}{pretrained}_{_file_name(cfg.target_model)}_descriptions"
+
+
+def _file_name(model_name: str) -> str:
+    """A model name as a file-name part: CLIP's "ViT-B/16" -> "ViT-B16"."""
+    return model_name.replace("/", "")
 
 
 def og_result_basename(cfg) -> tuple:
@@ -68,7 +73,7 @@ _SIMILARITY_NOTES = {
 def write_results(outputs: dict, cfg):
     df = pd.DataFrame(outputs)
     stamp = datetime.datetime.now().strftime("%y_%m_%d_%H_%M")
-    save_dir = os.path.join(cfg.result_dir, f"{cfg.target_model}_{stamp}")
+    save_dir = os.path.join(cfg.result_dir, f"{_file_name(cfg.target_model)}_{stamp}")
     os.makedirs(save_dir, exist_ok=True)
     if getattr(cfg, "naming", "generated") == "og":
         base, args_base = og_result_basename(cfg)

@@ -9,9 +9,14 @@ A target exposes
 where `layers` are canonical names ("blocks.i", see capture.py). Every requested
 layer comes from one forward. Ported: the EfficientNet targets `tiny_cnn`,
 `breastclip` (the Mammo-CLIP image encoder) and `breastclip_classifier` (the
-fine-tuned classifier of C-Mammo-CLIP Dissect). Random weights come from an
-explicit torch.Generator; the Swin, ResNet, ViT and CLIP targets are not ported
-yet and raise."""
+fine-tuned classifier of C-Mammo-CLIP Dissect), and the OpenAI CLIP towers of
+G-dissect, which register when their module is imported: the ViTs `ViT-B/32`,
+`ViT-B/16`, `ViT-L/14`, `clip`, `clip-cub`, `clip-bloodmnist` (`models/clip_vit.py`,
+layers "layers.i") and the ModifiedResNets `clip_rn50`, `clip_rn101`, `clip_rn50x4`
+(`models/modified_resnet.py`, layers "conv1", "layer1".."layer4"). The CLIP targets
+take the float32 batch path (no `harvest_u8_dispatch`). Random weights come from
+an explicit torch.Generator; the Swin, ResNet and ViT-encoder targets are not
+ported yet and raise."""
 from __future__ import annotations
 
 import os
@@ -163,11 +168,14 @@ def _breastclip_classifier(ckpt_path: Optional[str] = None,
 
 def get_target_model(name: str, **kw):
     if name not in TARGETS:
+        # model-backed targets register on import; unlike the JAX package, the
+        # `clip_rn*` names resolve without an explicit import of their module
         low = name.lower()
-        if name == "breastclip_swin" or low.startswith(("resnet", "vit", "dino", "mae")):
+        if low.startswith("clip_rn"):
+            import mammodissect_torch.models.modified_resnet  # noqa: F401
+        elif low.startswith(("vit-b", "vit-l", "rn", "clip")):
+            import mammodissect_torch.models.clip_vit  # noqa: F401
+        elif name == "breastclip_swin" or low.startswith(("resnet", "vit", "dino", "mae")):
             raise NotImplementedError(f"target {name!r} is not ported yet: the target zoo "
                                       "(Swin, ResNet, ViT) is roadmap item 14")
-        if low.startswith(("rn", "clip")):
-            raise NotImplementedError(f"target {name!r} is not ported yet: the CLIP towers "
-                                      "(G-dissect) are roadmap item 13")
     return TARGETS.get(name)(**kw)

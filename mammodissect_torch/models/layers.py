@@ -14,11 +14,15 @@
   float32 master weights with bf16 compute in fine-tuning).
 - GeM, LinearProjectionHead, MLPProjectionHead, LinearClassifier.
 - init_weights: random weights from an explicit torch.Generator.
+- nchw_from_nhwc / l2_normalized: the NHWC numpy batch of a dissector or target
+  interface as an NCHW tensor on the device, and embeddings back as L2-normalized
+  numpy (the CLIP towers).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -205,3 +209,14 @@ class LinearClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)
+
+
+def nchw_from_nhwc(images, device) -> torch.Tensor:
+    """NHWC images (numpy) -> an NCHW float32 tensor on `device`."""
+    return torch.as_tensor(np.asarray(images, np.float32)).to(device).permute(0, 3, 1, 2)
+
+
+def l2_normalized(emb: torch.Tensor) -> np.ndarray:
+    """Rows divided by their L2 norm (at least 1e-12), float32 numpy."""
+    emb = emb.float()
+    return (emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True).clamp(min=1e-12)).cpu().numpy()

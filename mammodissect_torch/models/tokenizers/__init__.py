@@ -1,5 +1,6 @@
-"""Tokenizers (BERT WordPiece)."""
+"""Tokenizers (BERT WordPiece, CLIP byte-BPE)."""
 
+from mammodissect_torch.models.tokenizers.bpe import ClipBPETokenizer
 from mammodissect_torch.models.tokenizers.wordpiece import WordPieceTokenizer
 
-__all__ = ["WordPieceTokenizer"]
+__all__ = ["WordPieceTokenizer", "ClipBPETokenizer"]

@@ -150,12 +150,13 @@ def test_formerly_refused_paths_run(setup, tmp_path, change, log):
 
 @pytest.mark.parametrize("change,match", [
     ({"target_model": "breastclip_swin"}, "item 14"),
-    ({"target_model": "tiny_cnn", "clip_model": "ViT-B/16"}, "item 13"),
+    ({"target_model": "vit_b_16", "clip_model": "ViT-B/16"}, "item 14"),
     ({"target_model": "breastclip_classifier", "finetuned_ckpt": "<dir>"}, "orbax"),
 ])
 def test_unported_paths_raise(setup, tmp_path, change, match):
-    """What the port still refuses: the Swin target (the target zoo), the CLIP
-    dissectors (G-dissect) and the JAX trainer's orbax checkpoints (fine-tuning)."""
+    """What the port still refuses: the Swin and torchvision-style ViT targets (the
+    target zoo; the CLIP dissector they are paired with here is ported) and the JAX
+    trainer's orbax checkpoints (fine-tuning)."""
     images, _, _ = setup
     kw = _base()
     kw.update(change)

@@ -311,3 +311,22 @@ def test_finetune_train_steps_cuda_match_cpu(cuda):
         if v.is_floating_point():
             np.testing.assert_allclose(gpu[k].cpu().numpy(), v.numpy(), rtol=0,
                                        atol=1e-5 + 1e-3 * float(v.abs().max()), err_msg=k)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_vit_block_cuda_matches_cpu(cuda, causal):
+    """A ViT-B/16-wide CLIP block (768, 12 heads, 197 tokens) on the card equals the CPU
+    at float32 with TF32 off: the attention's matmuls, float32 softmax and -inf
+    causal mask."""
+    import copy
+
+    from mammodissect_torch.models.clip_vit import ResidualAttentionBlock, init_clip_weights
+
+    block = ResidualAttentionBlock(768, 12, causal=causal).eval()
+    init_clip_weights(block, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(4, 197, 768)).astype(np.float32))
+    with torch.no_grad():
+        want = block(x)
+        got = copy.deepcopy(block).to(cuda)(x.to(cuda)).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "forbidden: []" in proc.stdout
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 48, proc.stdout  # every module of the package was imported
+    assert n_modules >= 56, proc.stdout  # every module of the package was imported
 
 
 @pytest.fixture
@@ -70,6 +70,33 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_cuda):
         run_dissection(DissectConfig(target_model="breastclip", clip_model="breastclip",
                                      resident=True))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_zseval_cli_without_device_raises_without_a_gpu(no_cuda, tmp_path):
+    out = tmp_path / "zs.json"
+    proc = _run(["-m", "mammodissect_torch.cli.zseval", "--clip_model", "ViT-B/16",
+                 "--d_probe", "synthetic", "--probe_kwargs", '{"n": 4, "h": 32, "w": 32, "c": 3}',
+                 "--dissector_kwargs", '{"image_size": 32, "vision_layers": 1, "text_layers": 1}',
+                 "--output", str(out)])
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr, proc.stderr
+    assert not out.exists()
+
+
+def test_clip_entry_points_raise_without_a_gpu(no_cuda):
+    from mammodissect_torch.dissect.dissectors import get_dissector
+    from mammodissect_torch.dissect.targets import get_target_model
+    from mammodissect_torch.dissect.evalmetrics import default_text_embedder
+
+    tiny = {"image_size": 32, "vision_layers": 1, "text_layers": 1}
+    with pytest.raises(RuntimeError, match="GPU"):
+        get_dissector("ViT-B/16", **tiny)
+    with pytest.raises(RuntimeError, match="GPU"):
+        get_target_model("clip", **tiny)
+    with pytest.raises(RuntimeError, match="GPU"):
+        get_target_model("clip_rn50", input_size=32)
+    with pytest.raises(RuntimeError, match="GPU"), pytest.warns(UserWarning, match="RANDOM"):
+        default_text_embedder("clip", **tiny)
 
 
 def _finetune_data(root, n=12, hw=(32, 24)):
