@@ -68,7 +68,6 @@ def default_text_embedder(kind: str = "clip", ckpt_path: Optional[str] = None, *
     if kind == "bert":
         from mammodissect_torch.dissect.dissectors import get_dissector
 
-        kw.setdefault("image_shape", (64, 64, 1))  # accepted for the JAX factory's kwargs
         return get_dissector("breastclip", ckpt_path=ckpt_path, **kw).embed_texts
     raise KeyError(f"unknown default embedder kind {kind!r} (clip | bert)")
 

@@ -40,6 +40,7 @@ from mammodissect_torch.models.layers import (
     Conv2d,
     LayerNorm,
     Linear,
+    attend,
     init_weights,
     l2_normalized,
     nchw_from_nhwc,
@@ -92,15 +93,9 @@ class ResidualAttentionBlock(nn.Module):
         qkv = F.linear(self.ln_1(x).to(w.dtype), w, self.attn.in_proj_bias)
         q, k, v = (a.reshape(b, t, self.n_head, dh).transpose(1, 2)
                    for a in qkv.split(d, dim=-1))
-        # flax promotion: a bf16 product divided by a scale of x's dtype
-        scores = (q @ k.transpose(-1, -2)).to(torch.promote_types(qkv.dtype, x.dtype))
-        scores = scores / math.sqrt(dh)
-        if self.causal:
-            mask = torch.full((t, t), float("-inf"), device=x.device).triu(1)
-            scores = scores + mask.to(scores.dtype)
-        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        ctx_dtype = torch.promote_types(probs.dtype, v.dtype)
-        ctx = (probs.to(ctx_dtype) @ v.to(ctx_dtype)).transpose(1, 2).reshape(b, t, d)
+        mask = (torch.full((t, t), float("-inf"), device=x.device).triu(1)
+                if self.causal else None)
+        ctx = attend(q, k, v, x.dtype, mask).transpose(1, 2).reshape(b, t, d)
         x = x + self.attn.out_proj(ctx)
         return x + self.mlp(self.ln_2(x))
 
@@ -379,7 +374,7 @@ class OpenAIClip:
 
     def __init__(self, name: str = "ViT-B/16", tokenizer=None, seed: int = 0,
                  ckpt_path: Optional[str] = None, dtype=None, device=None,
-                 text_batch: int = 256, log=print, **overrides):
+                 log=print, **overrides):
         dev = resolve_device(device)  # before building: no GPU fails fast
         cfg = dict(VIT_CONFIGS.get(name, VIT_CONFIGS["ViT-B/16"]))
         sd = None
@@ -399,7 +394,6 @@ class OpenAIClip:
         self.module = module.to(dev).eval()
         self.device = dev
         self.tokenizer = tokenizer
-        self.text_batch = text_batch  # texts per text-tower forward (bounds memory)
 
     def tokenize(self, texts) -> np.ndarray:
         if self.tokenizer is None:
@@ -417,11 +411,10 @@ class OpenAIClip:
 
     @torch.inference_mode()
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
-        """BPE-tokenized, EOT-pooled, projected, L2-normalized [C, embed_dim] float32."""
+        """BPE-tokenized, EOT-pooled, projected, L2-normalized [C, embed_dim] float32,
+        all texts in one forward."""
         toks = torch.as_tensor(self.tokenize(list(texts)), dtype=torch.long)
-        out = [self.module.encode_text(toks[i:i + self.text_batch].to(self.device)).float()
-               for i in range(0, toks.shape[0], self.text_batch)]
-        return l2_normalized(torch.cat(out))
+        return l2_normalized(self.module.encode_text(toks.to(self.device)).float())
 
     @torch.inference_mode()
     def harvest(self, images, layers: Sequence[str], pool_mode: str = "avg"):

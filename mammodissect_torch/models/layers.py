@@ -12,6 +12,8 @@
 - Linear / Conv2d: compute in `compute_dtype`, by default their weight's dtype;
   the input, weight and bias are cast at use (flax's `dtype=` over `param_dtype=`:
   float32 master weights with bf16 compute in fine-tuning).
+- attend: the CLIP towers' plain attention (scores scaled after q.k^T, softmax in
+  float32), shared by the ViT blocks and the ModifiedResNet attention pool.
 - GeM, LinearProjectionHead, MLPProjectionHead, LinearClassifier.
 - init_weights: random weights from an explicit torch.Generator.
 - nchw_from_nhwc / l2_normalized: the NHWC numpy batch of a dissector or target
@@ -148,6 +150,20 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, x_dtype: torch.dtype,
+           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(dh) + mask) v over [B, heads, T, dh], with flax's
+    promotion: a product in the dense dtype divided by a scale of `x_dtype`, the
+    mask added in that dtype, the softmax in float32 cast back to `x_dtype`."""
+    scores = (q @ k.transpose(-1, -2)).to(torch.promote_types(q.dtype, x_dtype))
+    scores = scores / math.sqrt(q.shape[-1])
+    if mask is not None:
+        scores = scores + mask.to(scores.dtype)
+    probs = torch.softmax(scores.float(), dim=-1).to(x_dtype)
+    ctx_dtype = torch.promote_types(probs.dtype, v.dtype)
+    return probs.to(ctx_dtype) @ v.to(ctx_dtype)
 
 
 def squeeze_excite(x: torch.Tensor, se_reduce: nn.Module, se_expand: nn.Module) -> torch.Tensor:

@@ -17,7 +17,6 @@
 """
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -32,6 +31,7 @@ from mammodissect_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
     Linear,
+    attend,
     init_weights,
     l2_normalized,
     nchw_from_nhwc,
@@ -107,12 +107,7 @@ class AttentionPool2d(nn.Module):
 
         q = heads(self.q_proj(tokens[:, :1]))
         k, v = heads(self.k_proj(tokens)), heads(self.v_proj(tokens))
-        scores = (q @ k.transpose(-1, -2)).to(torch.promote_types(q.dtype, x.dtype))
-        scores = scores / math.sqrt(dh)
-        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        ctx_dtype = torch.promote_types(probs.dtype, v.dtype)
-        ctx = (probs.to(ctx_dtype) @ v.to(ctx_dtype)).transpose(1, 2).reshape(b, c)
-        return self.c_proj(ctx)
+        return self.c_proj(attend(q, k, v, x.dtype).transpose(1, 2).reshape(b, c))
 
 
 MODIFIED_RESNET_SPECS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {

@@ -88,7 +88,6 @@ def test_text_embeddings_match_jax_with_the_real_vocab(pair):
     jc, pc = pair
     assert pc.module.vocab_size == 49408
     words = open(CONCEPT_SET).read().split("\n")[:40] + TEXTS
-    pc.text_batch = 16  # several text batches
     _rel_close(pc.embed_texts(words), jc.embed_texts(words))
 
 
