@@ -65,6 +65,18 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      concepts; (e) `cli.zseval` with the bf16 BreastClip (B5 at 1520x912) on a `csv:`
      probe of phase 10's mammogram PNGs (label Mass): a finite AUROC, img/s, kernel 2
      launched 32 times a batch; then with ViT-B/16 on an RGB folder probe.
+ 12. the target zoo (random weights from seeds, float32 batches, TF32 off), each run
+     reading the dissector's image and text caches of an earlier phase: (a) `resnet50`
+     (conv1, layer1-4: 3904 units) and `vit` (the HF ViT-B/16, 12 layers: 9216 units)
+     on phase 11's 2048 images, dissected by ViT-B/16; (b) `breastclip_swin`
+     (swin-tiny, 4 stages: 1440 units) on phase 8's 512 mammogram-shaped images at
+     1520x912, dissected by the bf16 breastclip: wall, img/s, stage seconds, peak
+     memory, rows, finite similarities, kernel 1 launched once and kernel 2 never (no
+     B5 forward: the caches are read); kernel 1 at each run's shape against its plain
+     version, timed, with its bound; (c) a narrow ResNet, ViT and Swin, each dissected
+     on the card and on the CPU by a narrow CLIP ViT: identical top-1 concepts and top
+     images; BreastClip with a narrow Swin and a narrow ViT image tower embedding the
+     same images on both (1e-4 on the unit-norm embeddings).
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -163,17 +175,29 @@ def mammo_pool(n, h, w, seed):
 
 
 class CyclicProbe:
-    """N-image probe over a small pool (image i is pool image i % len(pool))."""
+    """N-image probe over a small pool (image i is pool image i % len(pool)). `image`
+    gives the float32 view the device normalizes the uint8 image to (min-max, then
+    mean/std), each pool image normalized once."""
 
     def __init__(self, pool, n, mean=0.3089279, std=0.25053555):
         self.pool, self.n, self.mean, self.std = pool, n, mean, std
         self.image_shape = tuple(pool.shape[1:])
+        self._float = {}
 
     def __len__(self):
         return self.n
 
     def image_u8(self, i):
         return self.pool[i % len(self.pool)]
+
+    def image(self, i):
+        j = i % len(self.pool)
+        if j not in self._float:
+            x = self.pool[j].astype(np.float32) / 255.0
+            lo, hi = x.min(), x.max()
+            x = (x - lo) / (hi - lo) if hi > lo else np.zeros_like(x)
+            self._float[j] = ((x - self.mean) / self.std).astype(np.float32)
+        return self._float[j]
 
 
 def phase_card():
@@ -564,7 +588,8 @@ def phase_c_dissect(device, pool, dissector):
            "fp32_forward_plain_ms": per_forward["plain_ms"],
            "fp32_forward_bound_ms": per_forward["bound_ms"],
            "fp32_max_abs_err": max(r["max_abs_err"] for r in fp32),
-           "stage_logs": [l for l in first["logs"] if l.startswith(("[harvest]", "[clip-"))]}
+           "stage_logs": [l for l in first["logs"] if l.startswith(("[harvest]", "[clip-"))],
+           "work": work}
     say(f"[c-dissect] {C_DISSECT_N} images at {IMAGE_HW[0]}x{IMAGE_HW[1]}, classifier B5 fp32 x "
         f"39 blocks + BreastClip bf16 embed, 762 concepts, soft-WPMI, staged: "
         f"{row['wall_s']:.2f} s wall, {row['img_per_s']:.2f} img/s, peak "
@@ -1048,11 +1073,12 @@ def gdissect_full_width(device, work):
         f"activation dir: {rn_wall:.2f} s wall, stages {rn_stages} s (the ViT-B/16 image "
         f"and text caches read, not recomputed), peak {rn_peak / 2**30:.2f} GiB, launches "
         f"{rn_launches}")
-    return row, rn, n_concepts
+    return row, rn, n_concepts, probe
 
 
-def wpmi_gdissect_shape(device, u, c, k, n):
-    """(b): kernel 1 at the G-dissect shape against its plain version; times and bound."""
+def wpmi_gdissect_shape(device, u, c, k, n, label="G-dissect"):
+    """(b): kernel 1 at the G-dissect shape (or another staged dissection's, named by
+    `label`) against its plain version; times and bound."""
     import torch
 
     from mammodissect_torch.ops.cuda_wpmi import (
@@ -1076,7 +1102,8 @@ def wpmi_gdissect_shape(device, u, c, k, n):
            "launch_ms": cuda_ms(lambda: _launch(clip_sm, inds, p_in, 1e-7), reps=20, warmup=2),
            "plain_ms": cuda_ms(lambda: soft_wpmi_gather_logsum_plain(clip_sm, inds, p_in), reps=3),
            **wpmi_bound(u, c, k, n)}
-    say(f"[kernel 1] G-dissect shape U={u} C={c} k={k} N={n} (gather design): max abs err "
+    design = "slab" if n <= 1700 else "gather"  # clip_sm's column block in shared memory
+    say(f"[kernel 1] {label} shape U={u} C={c} k={k} N={n} ({design} design): max abs err "
         f"{row['max_abs_err']:.3g} (tol 1e-5 + 1e-5|x|); {row['ms']:.4f} ms through the "
         f"wrapper, launch alone {row['launch_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -1194,14 +1221,157 @@ def phase_gdissect(device, png_root):
     import torch
 
     work = tempfile.mkdtemp(prefix="chip_smoke_gd_")
-    full, rn, n_concepts = gdissect_full_width(device, work)
+    full, rn, n_concepts, probe = gdissect_full_width(device, work)
     torch.cuda.empty_cache()
     kernel1 = wpmi_gdissect_shape(device, full["units"], n_concepts, 100, GD_N)
     agree = gdissect_card_vs_cpu()
     torch.cuda.empty_cache()
     zs = phase_zeroshot(png_root)
     return {"vit": full, "clip_rn50": rn, "kernel1": kernel1, "card_vs_cpu": agree,
-            "zeroshot": zs}
+            "zeroshot": zs, "work": work, "probe": probe, "concepts": n_concepts}
+
+
+ZOO = {  # target: (layers, units), the CLI's default capture points
+    "resnet50": (["conv1", "layer1", "layer2", "layer3", "layer4"], 64 + 256 + 512 + 1024 + 2048),
+    "vit": ([f"layers.{i}" for i in range(12)], 12 * 768),
+    "breastclip_swin": ([f"layers.{i}" for i in range(4)], 96 + 192 + 384 + 768),
+}
+
+
+def zoo_run(name, cfg, probe, n_images, expect_launches):
+    """One zoo dissection reading the dissector's caches of an earlier phase: rows,
+    finite similarities, the caches read (no dissector built), launches as expected."""
+    layers, units = ZOO[name]
+    df, logs, wall, launches, peak = gdissect_run(cfg, probe)
+    stages = stage_seconds(logs)
+    check(len(df) == units, f"{name}: CSV has {len(df)} rows, expected {units}")
+    check(np.isfinite(csv_similarities(df)).all(), f"{name}: non-finite similarities")
+    check("[clip-img] probe embeddings cached, skipping" in logs
+          and not {"dissector", "clip-txt", "clip-img"} & set(stages),
+          f"{name} did not read the dissector's caches: {logs}")
+    check(launches == expect_launches,
+          f"{name}: launches {launches}, expected {expect_launches}")
+    row = {"units": units, "images": n_images, "wall_s": wall, "img_per_s": n_images / wall,
+           "harvest_img_per_s": n_images / stages["harvest"], "stages_s": stages,
+           "other_s": wall - sum(stages.values()), "max_memory_allocated_bytes": peak,
+           "launches": launches, "rows": len(df)}
+    return row
+
+
+def zoo_full_width(device, gdissect, c_dissect, pool):
+    """(a) resnet50 and vit on phase 11's probe and activation dir, dissected by
+    ViT-B/16; (b) breastclip_swin (swin-tiny) on phase 8's 512 mammograms and
+    activation dir, dissected by the bf16 breastclip."""
+    import torch
+
+    from mammodissect_torch.dissect.engine import DissectConfig
+
+    rows = {}
+    work = gdissect["work"]
+    for name in ("resnet50", "vit"):
+        cfg = DissectConfig(target_model=name, clip_model="ViT-B/16", target_layers=ZOO[name][0],
+                            d_probe="synthetic",
+                            probe_kwargs={"n": GD_N, "h": GD_SIZE, "w": GD_SIZE, "c": 3},
+                            concept_set=CONCEPTS, batch_size=GD_BATCH, similarity_fn="soft_wpmi",
+                            resident=False, device=device.type,
+                            activation_dir=os.path.join(work, "acts"),
+                            result_dir=os.path.join(work, "results"))
+        rows[name] = zoo_run(name, cfg, gdissect["probe"], GD_N, {"mbconv": 0, "wpmi": 1})
+        torch.cuda.empty_cache()
+    work = c_dissect["work"]
+    cfg = DissectConfig(target_model="breastclip_swin", clip_model="breastclip",
+                        target_layers=ZOO["breastclip_swin"][0], d_probe="synthetic_mammo",
+                        concept_set=CONCEPTS, batch_size=MAIN_BATCH, similarity_fn="soft_wpmi",
+                        resident=False, device=device.type,
+                        target_kwargs={"variant": "swin-tiny", "seed": 3},
+                        activation_dir=os.path.join(work, "acts"),
+                        result_dir=os.path.join(work, "results"))
+    # the dissector's embeddings and text come from phase 8's caches: kernel 2 (the
+    # B5 dissector's) does not run here, kernel 1 scores once
+    rows["breastclip_swin"] = zoo_run("breastclip_swin", cfg, CyclicProbe(pool, C_DISSECT_N),
+                                      C_DISSECT_N, {"mbconv": 0, "wpmi": 1})
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        say(f"[zoo] {name} ({r['units']} units, fp32, TF32 off), {r['images']} images, "
+            f"dissected by {'ViT-B/16' if name != 'breastclip_swin' else 'breastclip bf16'} "
+            f"from the cached embeddings: {r['wall_s']:.2f} s wall, {r['img_per_s']:.2f} img/s "
+            f"(harvest {r['harvest_img_per_s']:.2f} img/s); stages {r['stages_s']} s, other "
+            f"{r['other_s']:.2f} s; peak {r['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+            f"{r['rows']} CSV rows, similarities finite; launches {r['launches']}")
+    return rows
+
+
+def zoo_card_vs_cpu():
+    """(c) a narrow ResNet, ViT encoder and Swin, each dissected end to end on the card
+    and on the CPU by the same narrow CLIP ViT (fp32, TF32 off); and BreastClip with a
+    narrow Swin and a narrow ViT image tower embedding the same images on both."""
+    import torch
+
+    from mammodissect_torch.data.probes import get_probe
+    from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
+    from mammodissect_torch.dissect.targets import get_target_model
+    from mammodissect_torch.models.breastclip import BreastClip
+    from mammodissect_torch.models.clip_vit import OpenAIClip
+
+    narrow_clip = dict(vision_width=128, vision_layers=4, vision_heads=2, text_width=128,
+                       text_layers=2, text_heads=2, embed_dim=64, image_size=64)
+    targets = {  # name: (target kwargs, layers)
+        "resnet18": ({}, ["conv1", "layer1", "layer2", "layer3", "layer4"]),
+        "vit": (dict(image_size=64, width=128, layers=3, heads=2), ["layers.0", "layers.2"]),
+        "breastclip_swin": (dict(spec={"embed": 32, "depths": [2, 2, 2], "heads": [2, 2, 4]}),
+                            ["layers.0", "layers.1", "layers.2"]),
+    }
+    probe = get_probe("synthetic", n=256, h=64, w=64, c=3, seed=2)
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_agree_")
+    dfs = {}
+    for dev in ("cpu", "cuda"):
+        clip = OpenAIClip("ViT-B/16", seed=1, device=dev, **narrow_clip)
+        for name, (kw, layers) in targets.items():
+            cfg = DissectConfig(target_model=name, clip_model="ViT-B/16", target_layers=layers,
+                                d_probe="synthetic", concept_set=CONCEPTS, batch_size=64,
+                                device=dev, activation_dir=os.path.join(work, dev, "acts"),
+                                result_dir=os.path.join(work, dev, name))
+            target = get_target_model(name, device=dev, seed=4, **kw)
+            dfs[dev, name], _ = run_dissection(cfg, probe=probe, target=target, dissector=clip,
+                                               log=lambda *_: None)
+    torch.cuda.synchronize()
+    out = {}
+    for name in targets:
+        cpu, gpu = dfs["cpu", name], dfs["cuda", name]
+        agree = float(np.mean([a[0] == b[0] for a, b in zip(cpu["description"],
+                                                             gpu["description"])]))
+        images = float(np.mean([a == b for a, b in zip(cpu["images"], gpu["images"])]))
+        out[name] = {"units": len(cpu), "top1_agreement": agree, "top_images_identical": images}
+        say(f"[zoo] card vs CPU, narrow {name} ({len(cpu)} units), 256 images at 64x64, "
+            f"dissected by a narrow CLIP ViT, fp32, TF32 off: top-1 concept agreement "
+            f"{agree:.4f}, identical top-image lists {images:.4f}")
+        check(agree == 1.0, f"zoo card vs CPU ({name}): top-1 agreement {agree} < 1")
+        check(images == 1.0, f"zoo card vs CPU ({name}): top images differ ({images})")
+
+    x = probe.images[:32, :, :, :1]  # grayscale, broadcast to 3 channels by the towers
+    for tower, geometry in (("swin", {"spec": {"embed": 32, "depths": [2, 2], "heads": [2, 4]}}),
+                            ("vit", {"image_size": 64, "width": 128, "layers": 2, "heads": 2})):
+        cfg = {"image_encoder": {"model_type": tower, "in_channels": 3, **geometry},
+               "text_encoder": {}, "projection_head": {"proj_dim": 64}}
+        emb = {dev: BreastClip.create(model_config=cfg, bert_layers=1, vocab_size=64, seed=5,
+                                      device=dev).embed_images(x) for dev in ("cpu", "cuda")}
+        err = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+        out[f"breastclip_{tower}_embed_max_abs_err"] = err
+        say(f"[zoo] BreastClip with a narrow {tower} tower, 32 images at 64x64, fp32: card vs "
+            f"CPU max abs err of the unit-norm embeddings {err:.3g} (tol 1e-4)")
+        check(err <= 1e-4, f"BreastClip {tower} tower card vs CPU: max abs err {err}")
+    return out
+
+
+def phase_zoo(device, gdissect, c_dissect, pool):
+    import torch
+
+    rows = zoo_full_width(device, gdissect, c_dissect, pool)
+    kernel1 = {name: wpmi_gdissect_shape(device, r["units"], gdissect["concepts"], 100,
+                                         r["images"], label=name) for name, r in rows.items()}
+    torch.cuda.empty_cache()
+    agree = zoo_card_vs_cpu()
+    return {"runs": rows, "kernel1": kernel1, "card_vs_cpu": agree}
 
 
 def main():
@@ -1237,6 +1407,10 @@ def main():
     finetune = phase_finetune(device, pool)
     torch.cuda.empty_cache()
     gdissect = phase_gdissect(device, finetune["end_to_end"]["png_root"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zoo = phase_zoo(device, gdissect, c_dissect, pool)
+    say(f"[zoo] phase 12 in {time.perf_counter() - t0:.1f} s")
 
     per_forward = lambda key: sum(r[key] * r["blocks"] for r in mbconv)  # noqa: E731
     t_bytes_share = sum(r["bound_ms"] * r["blocks"] for r in mbconv if r["bound_by"] == "bytes")
@@ -1250,13 +1424,17 @@ def main():
          "launches_gdissect": gdissect["vit"]["launches"]["wpmi"],
          "launches_gdissect_clip_rn50": gdissect["clip_rn50"]["launches"]["wpmi"],
          "launches_zeroshot": gdissect["zeroshot"]["breastclip"]["launches"]["wpmi"],
-         "max_abs_err": max(wpmi["max_abs_err"], gdissect["kernel1"]["max_abs_err"]),
+         "launches_zoo": {n: r["launches"]["wpmi"] for n, r in zoo["runs"].items()},
+         "max_abs_err": max(wpmi["max_abs_err"], gdissect["kernel1"]["max_abs_err"],
+                            *(r["max_abs_err"] for r in zoo["kernel1"].values())),
          # ms and wrapper_ms: through the wrapper (the first version's span); launch_ms: alone
          "ms": wpmi["ms"], "wrapper_ms": wpmi["ms"], "launch_ms": wpmi["launch_ms"],
          "plain_ms": wpmi["plain_ms"], "bound_ms": wpmi["bound_ms"],
          "bound_by": wpmi["bound_by"], "library_ms": None,
          # at the G-dissect shape (U = 9216 ViT-B/16 units, N = 2048: the gather design)
-         "gdissect": gdissect["kernel1"]},
+         "gdissect": gdissect["kernel1"],
+         # at each zoo dissection's shape (phase 12)
+         "zoo": zoo["kernel1"]},
         {"name": "fused_expand_dw", "route": "cuda",
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
@@ -1267,6 +1445,8 @@ def main():
          "launches_gdissect": gdissect["vit"]["launches"]["mbconv"],
          # zero-shot with the bf16 BreastClip: 32 a batch in embed_images
          "launches_zeroshot": gdissect["zeroshot"]["breastclip"]["launches"]["mbconv"],
+         # the zoo dissections read phase 8's and 11's dissector caches: no B5 forward
+         "launches_zoo": {n: r["launches"]["mbconv"] for n, r in zoo["runs"].items()},
          "max_abs_err": max(r["max_abs_err_bf16"] for r in mbconv),
          # one forward's 32 launches at the main path's batch
          "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
@@ -1286,7 +1466,8 @@ def main():
         f"wire off/on/on/off {[round(r['img_per_s'], 2) for r in wire['runs']]} img/s, "
         f"fine-tune {finetune['train']['ms_per_step']:.2f} ms a step (remat "
         f"{finetune['train_remat']['ms_per_step']:.2f}), "
-        f"G-dissect {gdissect['vit']['img_per_s']:.2f} img/s, "
+        f"G-dissect {gdissect['vit']['img_per_s']:.2f} img/s, zoo "
+        f"{ {n: round(r['img_per_s'], 2) for n, r in zoo['runs'].items()} } img/s, "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

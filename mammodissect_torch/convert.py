@@ -15,6 +15,11 @@
 - `modified_resnet_from_jax(variables)`: the JAX package's ModifiedResNet
   {"params", "batch_stats"} -> the port's ModifiedResNet state dict (OpenAI's
   names without `visual.`).
+- `resnet_from_jax(variables)`, `vit_encoder_from_jax(params)`,
+  `swin_from_jax(params)`: the target zoo's towers -> torchvision / HF `ViTModel` /
+  HF `SwinModel` names (the inverses of `resnet_torch_to_flax`,
+  `vit_torch_to_flax` and `swin_torch_to_flax`; the Swin one splits the fused
+  `qkv` Dense back into query, key and value).
 - `load_breastclip_checkpoint(path, module)`: a reference Mammo-CLIP `.tar`
   ({"model": state_dict, "config": ...}) into a BreastClipModule. The names already
   match; the loader strips DDP's `module.` prefix and maps the text tower's
@@ -108,13 +113,17 @@ def bert_from_jax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def breastclip_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX BreastClipModule variables {"params", "batch_stats"} (numpy leaves) ->
-    state dict of the port's BreastClipModule (CNN image tower)."""
-    params, stats = variables["params"], variables["batch_stats"]
+    state dict of the port's BreastClipModule (a CNN, Swin or ViT image tower)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
     image = params["image_encoder"]
-    sd = efficientnet_from_jax(image["backbone"], stats["image_encoder"]["backbone"],
-                               prefix="image_encoder.")
-    if "pool" in image:  # GeM
-        sd["image_encoder.pool.p"] = _t(image["pool"]["p"])
+    if "backbone" in image:
+        sd = efficientnet_from_jax(image["backbone"], stats["image_encoder"]["backbone"],
+                                   prefix="image_encoder.")
+        if "pool" in image:  # GeM
+            sd["image_encoder.pool.p"] = _t(image["pool"]["p"])
+    else:
+        tower = swin_from_jax(image) if "patch_norm" in image else vit_encoder_from_jax(image)
+        sd = {f"image_encoder.{k}": v for k, v in tower.items()}
     sd.update(bert_from_jax(params["text_encoder"], prefix="text_encoder."))
     for side in ("image_projection", "text_projection"):
         head = params[side]
@@ -204,6 +213,86 @@ def modified_resnet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def resnet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ResNet variables {"params", "batch_stats"} (numpy leaves) -> state dict
+    of the port's ResNet, torchvision's names."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {"conv1.weight": _conv(params["conv1"]["kernel"])}
+    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+    for name in params:
+        if not name.startswith("layer"):
+            continue
+        p, s, dst = params[name], stats[name], name.replace("_", ".")  # layer2_0 -> layer2.0
+        for ci in (1, 2, 3):
+            if f"conv{ci}" in p:
+                sd[f"{dst}.conv{ci}.weight"] = _conv(p[f"conv{ci}"]["kernel"])
+                _bn(sd, f"{dst}.bn{ci}", p[f"bn{ci}"], s[f"bn{ci}"])
+        if "downsample_conv" in p:
+            sd[f"{dst}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
+            _bn(sd, f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    _linear(sd, "fc", params["fc"])
+    return sd
+
+
+def _patch_embed(sd, dst: str, params) -> None:
+    sd[f"{dst}.weight"] = _conv(params["kernel"])
+    sd[f"{dst}.bias"] = _t(params["bias"])
+
+
+def vit_encoder_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ViTImageEncoder params (numpy leaves) -> state dict of the port's
+    ViTImageEncoder, HF `ViTModel`'s names."""
+    sd: Dict[str, torch.Tensor] = {}
+    _patch_embed(sd, "embeddings.patch_embeddings.projection", params["patch_embed"])
+    sd["embeddings.cls_token"] = _t(params["cls_token"])
+    sd["embeddings.position_embeddings"] = _t(params["pos_embed"])
+    i = 0
+    while f"layers_{i}" in params:
+        p, dst = params[f"layers_{i}"], f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            _linear(sd, f"{dst}.attention.attention.{name}", p[name])
+        _linear(sd, f"{dst}.attention.output.dense", p["attn_out"])
+        _linear(sd, f"{dst}.intermediate.dense", p["mlp_in"])
+        _linear(sd, f"{dst}.output.dense", p["mlp_out"])
+        _layer_norm(sd, f"{dst}.layernorm_before", p["ln_before"])
+        _layer_norm(sd, f"{dst}.layernorm_after", p["ln_after"])
+        i += 1
+    _layer_norm(sd, "layernorm", params["ln_final"])
+    return sd
+
+
+def swin_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SwinEncoder params (numpy leaves) -> state dict of the port's SwinEncoder,
+    HF `SwinModel`'s names; the fused `qkv` Dense is split into query, key, value."""
+    sd: Dict[str, torch.Tensor] = {}
+    _patch_embed(sd, "embeddings.patch_embeddings.projection", params["patch_embed"])
+    _layer_norm(sd, "embeddings.norm", params["patch_norm"])
+    si = 0
+    while f"stage{si}_block0" in params:
+        bi = 0
+        while f"stage{si}_block{bi}" in params:
+            p, dst = params[f"stage{si}_block{bi}"], f"encoder.layers.{si}.blocks.{bi}"
+            _layer_norm(sd, f"{dst}.layernorm_before", p["ln1"])
+            _layer_norm(sd, f"{dst}.layernorm_after", p["ln2"])
+            attn = p["attn"]
+            kernels = np.split(np.asarray(attn["qkv"]["kernel"]), 3, axis=1)
+            biases = np.split(np.asarray(attn["qkv"]["bias"]), 3)
+            for name, kernel, bias in zip(("query", "key", "value"), kernels, biases):
+                _linear(sd, f"{dst}.attention.self.{name}", {"kernel": kernel, "bias": bias})
+            sd[f"{dst}.attention.self.relative_position_bias_table"] = _t(attn["rel_pos_bias"])
+            _linear(sd, f"{dst}.attention.output.dense", attn["proj"])
+            _linear(sd, f"{dst}.intermediate.dense", p["mlp_in"])
+            _linear(sd, f"{dst}.output.dense", p["mlp_out"])
+            bi += 1
+        if f"merge{si}" in params:
+            merge = params[f"merge{si}"]
+            _linear(sd, f"encoder.layers.{si}.downsample.reduction", merge["reduction"])
+            _layer_norm(sd, f"encoder.layers.{si}.downsample.norm", merge["ln"])
+        si += 1
+    _layer_norm(sd, "layernorm", params["ln_final"])
+    return sd
+
+
 def torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The state dict of a torch checkpoint file: `{"model": sd, ...}` or a bare
     state dict, without DDP's `module.` prefix."""
@@ -212,6 +301,19 @@ def torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     sd = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
     if sd and all(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def hf_state_dict(path: str, prefix: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a checkpoint file holding a state dict or a pickled module
+    (the HF ViT / Swin checkpoints), without `prefix` (`vit.`, `swin.`) on their
+    names when any name carries it."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(raw, "state_dict"):
+        raw = raw.state_dict()
+    sd = {k: v for k, v in raw.items() if isinstance(v, torch.Tensor)}
+    if any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
     return sd
 
 

@@ -1,5 +1,5 @@
-"""Probe datasets, the D_probe side of dissection (the part of
-`mammodissect/data/probes.py` the dissection paths need, copied).
+"""Probe datasets, the D_probe side of dissection (`mammodissect/data/probes.py`,
+copied, without the `cifar100` probes, which need a torchvision download).
 
 Every probe has a static `image_shape` (H, W, C), `len()` and `image(i)` -> HWC
 float32; the resident path reads `image_u8(i)` -> HWC uint8 and normalizes on the
@@ -12,6 +12,13 @@ Probe specs (`get_probe`):
   txt:<file>      `path label` list file
   csv:<file>      CSV with an image-path column, 1520x912 grayscale by default
   combined:<a>+<b>  concatenation
+  vindr, csaw, csaw_all_splits, embed_png, embed_marker_84, embed_marker_only,
+  embed_implant, embed_non_implant, embed_non_implant_100
+                  the reference's named mammography probes: CSV probes over the
+                  metadata CSV given as csv_file= (images under root=); `csaw`
+                  keeps the rows of one `split` (default "training"), the EMBED
+                  subsets select rows by their `Marker` / `Implant_type` columns
+                  (`concept_vit/data_utils.py:169-251`)
 """
 from __future__ import annotations
 
@@ -252,8 +259,31 @@ def get_probe(spec: str, **kw) -> Probe:
         return CsvProbe(spec[len("csv:"):], **{k: v for k, v in kw.items() if k in (
             "image_col", "root", "label_col", "split_col", "split", "size_hw", "mean",
             "std", "filters")})
-    raise KeyError(f"unknown probe spec {spec!r} (ported: synthetic, synthetic_u8, "
-                   "folder:<path>, txt:<file>, csv:<file>, combined:<a>+<b>)")
+    if spec in NAMED_PROBES:
+        csv_file = kw.get("csv_file")
+        if not csv_file:
+            raise ValueError(
+                f"probe {spec!r} needs csv_file=<metadata csv> (and root=) in this environment")
+        split_kw = ({"split_col": "split", "split": kw.get("split", "training")}
+                    if spec == "csaw" else {})
+        return CsvProbe(csv_file, root=kw.get("root", ""),
+                        image_col=kw.get("image_col", "image_path"),
+                        filters=kw.get("filters", NAMED_PROBES[spec]), **split_kw)
+    raise KeyError(f"unknown probe spec {spec!r} (known: {', '.join(PROBES)})")
+
+
+# the reference's named probes -> the metadata filter of each; the 100-image EMBED
+# variant is the same dataset pointed at a 100-row CSV (`data_utils.py:240-251`)
+NAMED_PROBES = {
+    "vindr": None, "csaw": None, "csaw_all_splits": None, "embed_png": None,
+    "embed_marker_84": {"Marker": 1},
+    "embed_marker_only": {"Marker": 1},
+    "embed_implant": {"Implant_type": 1},
+    "embed_non_implant": {"Implant_type": 0},
+    "embed_non_implant_100": {"Implant_type": 0},
+}
+PROBES = ("synthetic", "synthetic_u8", "folder:<path>", "txt:<file>", "csv:<file>",
+          "combined:<a>+<b>", *NAMED_PROBES)
 
 
 def _default_folder_preprocess(shape: tuple):

@@ -6,12 +6,17 @@ the probes and fine-tuning need, copied).
 - the train-time augmentation (flips, one affine warp, elastic deformation) and the
   (train x wire) load matrix of the fine-tune loader, `load_for_wire`: the same
   bytes as the JAX package's for the same seed on the uint8 wire and in training
-All float outputs are HWC float32. The resize is PIL's bilinear (the JAX package
-prefers its native cv2-style resize for float eval images when that is built)."""
+All float outputs are HWC float32. `gray_resize_normalize`, the float eval path
+(`CsvProbe.image`, the fine-tune loader's f32 eval wire), resizes with the native
+cv2-style bilinear of `native/` (no antialiasing), as the JAX package does, and
+with PIL only where the native library cannot be built (no g++); every other
+resize, and the uint8 paths, use PIL's bilinear, as in the JAX package."""
 from __future__ import annotations
 
 import numpy as np
 from PIL import Image
+
+from mammodissect_torch import native
 
 VINDR_MEAN = 0.3089279
 VINDR_STD = 0.25053555
@@ -81,10 +86,13 @@ def minmax_meanstd(arr: np.ndarray, mean: float, std: float) -> np.ndarray:
 
 
 def gray_resize_normalize(arr: np.ndarray, size_hw: tuple[int, int], mean: float,
-                          std: float) -> np.ndarray:
-    """Grayscale resize + min-max + mean/std."""
+                          std: float, prefer_native: bool = True) -> np.ndarray:
+    """Grayscale resize + min-max + mean/std: the native cv2-style resize when the
+    library builds (and `prefer_native`), else PIL's bilinear."""
     if arr.shape[-1] != 1:
         arr = arr.mean(axis=-1, keepdims=True)
+    if prefer_native and native.available():
+        return native.resize_normalize(arr, size_hw, mean, std)
     return minmax_meanstd(resize(arr, size_hw), mean, std).astype(np.float32)
 
 

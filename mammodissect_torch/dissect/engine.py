@@ -718,15 +718,16 @@ def _load_clip_feats(clip_save_name: str, text_save_name: str) -> np.ndarray:
 def get_similarity_from_activations(target_save_name: str, clip_save_name: str,
                                     text_save_name: str, similarity_fn,
                                     return_target_feats: bool = True, top_k: int = 100,
-                                    device="cpu"):
+                                    device=None):
     """Stage 4 of one layer (reference `utils.py:566-612`): load the cached features,
-    score them on `device`. Returns similarity [U, C] (and the activations) as numpy."""
+    score them on `device` (default CUDA, `resolve_device`). Returns similarity
+    [U, C] (and the activations) as numpy."""
     clip_feats = _load_clip_feats(clip_save_name, text_save_name)
     target_feats = np.load(target_save_name).astype(np.float32)
     kwargs = {}
     if getattr(similarity_fn, "__name__", "") == "soft_wpmi":
         kwargs["top_k"] = min(top_k, target_feats.shape[0])
-    dev = torch.device(device)
+    dev = resolve_device(device)
     similarity = similarity_fn(torch.from_numpy(clip_feats).to(dev),
                                torch.from_numpy(target_feats).to(dev), **kwargs).cpu().numpy()
     return (similarity, target_feats) if return_target_feats else similarity
@@ -735,8 +736,9 @@ def get_similarity_from_activations(target_save_name: str, clip_save_name: str,
 @torch.inference_mode()
 def score_all_layers(feats_by_layer: Dict[str, np.ndarray], clip_save_name: str,
                      text_save_name: str, similarity_name: str, top_k: int = 100,
-                     device="cpu") -> Dict[str, np.ndarray]:
-    """Stage 4 over all layers in one call on `device`: the per-layer [N, U_l]
+                     device=None) -> Dict[str, np.ndarray]:
+    """Stage 4 over all layers in one call on `device` (default CUDA,
+    `resolve_device`): the per-layer [N, U_l]
     activations are concatenated into [N, U_total]; soft_wpmi/wpmi score it with
     their segmented forms (log p(d) per layer, the math of the reference's
     layer-by-layer loop, `describe_broad_neurons.py:83-119`), the others are per
@@ -745,7 +747,7 @@ def score_all_layers(feats_by_layer: Dict[str, np.ndarray], clip_save_name: str,
     layers = list(feats_by_layer)
     widths = [feats_by_layer[l].shape[1] for l in layers]
     target_cat = np.concatenate([feats_by_layer[l].astype(np.float32) for l in layers], axis=1)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     clip_t, target_t = torch.from_numpy(clip_feats).to(dev), torch.from_numpy(target_cat).to(dev)
     kwargs = {"top_k": min(top_k, target_cat.shape[0])} if similarity_name == "soft_wpmi" else {}
     if similarity_name in SEGMENTED_FNS:

@@ -4,19 +4,26 @@ torchvision lookups, `concept_vit/data_utils.py:38-93`).
 
 A target exposes
   harvest(images [B, H, W, C] float32, layers, pool_mode) -> {layer: [B, C_l] float32}
+and the EfficientNet targets also
   harvest_u8_dispatch(u8 [B, H, W, C], layers, pool_mode, mean, std)
       -> (activations [B, U_total] on the device, names, widths)
 where `layers` are canonical names ("blocks.i", see capture.py). Every requested
-layer comes from one forward. Ported: the EfficientNet targets `tiny_cnn`,
-`breastclip` (the Mammo-CLIP image encoder) and `breastclip_classifier` (the
-fine-tuned classifier of C-Mammo-CLIP Dissect), and the OpenAI CLIP towers of
-G-dissect, which register when their module is imported: the ViTs `ViT-B/32`,
-`ViT-B/16`, `ViT-L/14`, `clip`, `clip-cub`, `clip-bloodmnist` (`models/clip_vit.py`,
-layers "layers.i") and the ModifiedResNets `clip_rn50`, `clip_rn101`, `clip_rn50x4`
-(`models/modified_resnet.py`, layers "conv1", "layer1".."layer4"). The CLIP targets
-take the float32 batch path (no `harvest_u8_dispatch`). Random weights come from
-an explicit torch.Generator; the Swin, ResNet and ViT-encoder targets are not
-ported yet and raise."""
+layer comes from one forward. Targets:
+- the EfficientNets `tiny_cnn`, `breastclip` (the Mammo-CLIP image encoder) and
+  `breastclip_classifier` (the fine-tuned classifier of C-Mammo-CLIP Dissect),
+  layers "blocks.i";
+- `breastclip_swin`, the Swin image tower of a Swin-towered Mammo-CLIP, layers
+  "layers.i" (its stages);
+- registered when their module is imported (`get_target_model` imports it): the
+  OpenAI CLIP ViTs `ViT-B/32`, `ViT-B/16`, `ViT-L/14`, `clip`, `clip-cub`,
+  `clip-bloodmnist` (`models/clip_vit.py`, "layers.i") and ModifiedResNets
+  `clip_rn50`, `clip_rn101`, `clip_rn50x4` (`models/modified_resnet.py`, "conv1",
+  "layer1".."layer4"); the torchvision ResNets `resnet18`..`resnet152`, `resnet`,
+  `resnet-cub`, `resnet-bloodmnist`, `resnet18_places` (`models/resnet.py`, "conv1",
+  "layer1".."layer4"); the HF ViTs `vit`, `dino`, `mae` and their `-cub` /
+  `-bloodmnist` variants (`models/vit_encoder.py`, "layers.i").
+All but the EfficientNets take the float32 batch path and compute in float32
+(TF32 off on the card). Random weights come from an explicit torch.Generator."""
 from __future__ import annotations
 
 import os
@@ -27,6 +34,8 @@ import numpy as np
 import torch
 
 from mammodissect_torch.convert import (
+    _load_non_strict,
+    hf_state_dict,
     load_classifier_checkpoint,
     load_image_encoder_checkpoint,
 )
@@ -39,17 +48,24 @@ from mammodissect_torch.models.classifier import (
 )
 from mammodissect_torch.models.efficientnet import EfficientNet, EfficientNetMammo
 from mammodissect_torch.models.layers import init_weights
+from mammodissect_torch.models.swin import SwinEncoder, drop_rel_pos_index, init_swin_weights
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
 from mammodissect_torch.utils.registry import Registry
 
 TARGETS: Registry = Registry("target_model")
 
 
-def take_kwargs(kw: dict, allowed: Sequence[str], target_name: str) -> dict:
+def take_kwargs(kw: dict, allowed: Sequence[str], target_name: str,
+                aliases: Optional[dict] = None) -> dict:
     """The entries of `kw` a factory consumes (`allowed`), warning about dropped
     non-empty values. The engine forwards `finetuned_ckpt` and `num_class` to every
     target; silently ignoring a user's --finetuned_img_classifier_chkpt would
-    dissect other weights than they asked for, so the drop is loud."""
+    dissect other weights than they asked for, so the drop is loud. `aliases` maps
+    other spellings onto factory arguments (num_class -> num_classes)."""
+    kw = dict(kw)
+    for alt, canon in (aliases or {}).items():
+        if alt in kw and canon not in kw:
+            kw[canon] = kw.pop(alt)
     dropped = sorted(k for k, v in kw.items() if k not in allowed and v not in (None, {}, ()))
     if dropped:
         warnings.warn(
@@ -150,7 +166,7 @@ def _breastclip_classifier(ckpt_path: Optional[str] = None,
     variant = arch_variant(arch)
     if variant.startswith("efficientnetv2"):
         raise NotImplementedError(f"arch {arch!r}: EfficientNetV2 (FusedMBConv) is not "
-                                  "ported yet (roadmap item 14)")
+                                  "ported yet (roadmap item 20)")
     if finetuned_ckpt and os.path.isdir(finetuned_ckpt):
         raise NotImplementedError(
             f"finetuned_ckpt {finetuned_ckpt!r} is an orbax directory, a checkpoint of the "
@@ -166,16 +182,61 @@ def _breastclip_classifier(ckpt_path: Optional[str] = None,
     return EfficientNetTarget(module, dev)
 
 
+class SwinTarget:
+    """Dissect the stages ("layers.i") of a Swin-towered Mammo-CLIP image encoder,
+    the reference's `load_image_encoder` swin option (`model/modules/__init__.py:14-33`);
+    each stage's [B, H, W, C] output pools by the 4-D rule. Random weights from
+    `seed`, or an HF Swin checkpoint at `hf_ckpt` / `ckpt_path` (`swin.` stripped,
+    loaded non-strict and logged). `spec` ({"embed", "depths", "heads"}) gives a
+    custom geometry for this target only; `input_size` is accepted for the JAX
+    factory's signature."""
+
+    def __init__(self, variant: str = "swin-tiny", in_channels: int = 3, patch_size: int = 4,
+                 window: int = 7, input_size: int = 224, seed: int = 0,
+                 hf_ckpt: Optional[str] = None, spec: Optional[dict] = None,
+                 ckpt_path: Optional[str] = None, device=None, log=print, **kw):
+        take_kwargs(kw, ("num_class",), "breastclip_swin")
+        dev = resolve_device(device)
+        model = SwinEncoder(variant=variant, patch_size=patch_size, window=window,
+                            in_channels=in_channels, spec=spec)
+        init_swin_weights(model, torch.Generator().manual_seed(seed))
+        path = hf_ckpt or ckpt_path
+        if path:
+            _load_non_strict(model, drop_rel_pos_index(hf_state_dict(path, "swin.")), log)
+        self.model = model.to(dev).eval()
+        self.device = dev
+
+    @torch.inference_mode()
+    def harvest(self, images, layers: Sequence[str], pool_mode: str = "avg"):
+        capture = tuple(sorted({layer_index(canonical_layer_name(l)) for l in layers}))
+        x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
+        _, captured = self.model(x, capture=capture, pool_mode=pool_mode)
+        return {k: v.cpu().numpy() for k, v in captured.items()}
+
+
+TARGETS.register("breastclip_swin", SwinTarget)
+
+
+# the HF ViT names (`concept_vit/data_utils.py:21-36`), registered by models/vit_encoder.py
+VIT_ENCODER_TARGETS = ("vit", "dino", "mae", "vit-cub", "vit-bloodmnist", "dino-cub",
+                       "dino-bloodmnist", "mae-cub", "mae-bloodmnist")
+
+
 def get_target_model(name: str, **kw):
     if name not in TARGETS:
-        # model-backed targets register on import; unlike the JAX package, the
-        # `clip_rn*` names resolve without an explicit import of their module
+        # model-backed targets register on import. Exact names come before the
+        # prefix rules: the JAX dispatch sends "vit-bloodmnist" (prefix "vit-b") to
+        # the CLIP module, which does not register it, and resolves `clip_rn*` only
+        # after an explicit import
         low = name.lower()
-        if low.startswith("clip_rn"):
+        if name in VIT_ENCODER_TARGETS:
+            import mammodissect_torch.models.vit_encoder  # noqa: F401
+        elif low.startswith("resnet"):
+            import mammodissect_torch.models.resnet  # noqa: F401
+        elif low.startswith("clip_rn"):
             import mammodissect_torch.models.modified_resnet  # noqa: F401
         elif low.startswith(("vit-b", "vit-l", "rn", "clip")):
             import mammodissect_torch.models.clip_vit  # noqa: F401
-        elif name == "breastclip_swin" or low.startswith(("resnet", "vit", "dino", "mae")):
-            raise NotImplementedError(f"target {name!r} is not ported yet: the target zoo "
-                                      "(Swin, ResNet, ViT) is roadmap item 14")
+        elif low.startswith(("vit", "dino", "mae")):
+            import mammodissect_torch.models.vit_encoder  # noqa: F401
     return TARGETS.get(name)(**kw)

@@ -4,11 +4,15 @@
 The canonical dissector config: EfficientNet-B5 '-detect' image tower (3-channel
 copies of the grayscale mammograms, average-pooled, 2048-d) + Bio_ClinicalBERT text
 tower (768-d, eos pooling) + linear projections to 512 + temperature 0.07
-(`logit_scale` = log(1/T)).
+(`logit_scale` = log(1/T)). The config's `image_encoder.model_type` may instead name
+a `swin` tower (`models/swin.py`, its pooled output) or a `vit` tower
+(`models/vit_encoder.py`, its CLS token), as `model/clip.py:44-52` pools them; their
+geometry keys (`spec`, `patch_size`, `window`; `image_size`, `width`, `layers`,
+`heads`) default to swin-tiny and ViT-B/16.
 
-State-dict names follow the reference: `image_encoder._blocks.i...`,
-`text_encoder.encoder.layer.i...`, `image_projection.projection`,
-`text_projection.projection`, `logit_scale`.
+State-dict names follow the reference: `image_encoder._blocks.i...` (HF names for
+the swin and vit towers), `text_encoder.encoder.layer.i...`,
+`image_projection.projection`, `text_projection.projection`, `logit_scale`.
 
 `BreastClip` wraps the module with its tokenizer and device and provides the
 dissector interface (`embed_images`, `embed_images_u8`, `embed_texts`,
@@ -38,6 +42,8 @@ from mammodissect_torch.models.layers import (
     MLPProjectionHead,
     init_weights,
 )
+from mammodissect_torch.models.swin import SwinEncoder, init_swin_weights
+from mammodissect_torch.models.vit_encoder import ViTImageEncoder, init_vit_weights
 from mammodissect_torch.models.tokenizers import WordPieceTokenizer
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
 
@@ -64,11 +70,18 @@ def default_model_config() -> Dict:
     }
 
 
+# the geometry keys of a config's image_encoder that each non-CNN tower takes
+_TOWER_GEOMETRY = {"swin": ("spec", "patch_size", "window"),
+                   "vit": ("image_size", "patch_size", "width", "layers", "heads")}
+
+
 class BreastClipModule(nn.Module):
     """Both towers + projections + logit_scale."""
 
     def __init__(self, image_variant: str = "efficientnet-b5", in_channels: int = 3,
-                 image_pooling: str = "avg", text_pooling: str = "eos", proj_dim: int = 512,
+                 image_pooling: str = "avg", image_tower: str = "cnn",
+                 image_kwargs: Optional[Dict] = None, text_pooling: str = "eos",
+                 proj_dim: int = 512,
                  proj_head: str = "linear", proj_dropout: float = 0.1,
                  temperature: float = 0.07, vocab_size: int = 28996, bert_layers: int = 12,
                  bert_hidden: int = 768, bert_heads: int = 12, bert_intermediate: int = 3072,
@@ -78,8 +91,8 @@ class BreastClipModule(nn.Module):
             raise NotImplementedError(f"pooling {text_pooling!r}")
         self.text_pooling = text_pooling
         self.proj_dim = proj_dim
-        self.image_encoder = EfficientNetMammo(variant=image_variant, in_channels=in_channels,
-                                               pooling=image_pooling, dtype=dtype)
+        self.image_encoder = _image_tower(image_tower, image_variant, in_channels, image_pooling,
+                                          dict(image_kwargs or {}), dtype)
         self.text_encoder = BertModel(vocab_size=vocab_size, hidden_size=bert_hidden,
                                       num_layers=bert_layers, num_heads=bert_heads,
                                       intermediate_size=bert_intermediate, dtype=dtype)
@@ -97,8 +110,13 @@ class BreastClipModule(nn.Module):
 
     def encode_image(self, images: torch.Tensor, capture: Sequence[int] = (),
                      pool_mode: str = "avg"):
-        """images [B, H, W, C] -> pooled [B, D] float32 (and the captured blocks)."""
-        pooled, captured = self.image_encoder(images, capture=capture, pool_mode=pool_mode)
+        """images [B, H, W, C] -> pooled [B, D] float32 (and the captured blocks); a
+        ViT tower's token sequence pools to its CLS token (`model/clip.py:49-52`)."""
+        if isinstance(self.image_encoder, ViTImageEncoder):
+            feats, captured = self.image_encoder(images, capture=capture)
+            pooled = feats[:, 0]
+        else:
+            pooled, captured = self.image_encoder(images, capture=capture, pool_mode=pool_mode)
         return (pooled, captured) if capture else pooled
 
     def encode_text(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
@@ -122,6 +140,20 @@ class BreastClipModule(nn.Module):
         return self._l2n(self.text_projection(feats))
 
 
+def _image_tower(kind: str, variant: str, in_channels: int, pooling: str, kw: Dict,
+                 dtype: torch.dtype) -> nn.Module:
+    """The image encoder a config's `image_encoder.model_type` names."""
+    if kind == "swin":
+        return SwinEncoder(variant=variant if variant.startswith("swin") else "swin-tiny",
+                           in_channels=in_channels, dtype=dtype, **kw)
+    if kind == "vit":
+        return ViTImageEncoder(in_channels=in_channels, dtype=dtype, **kw)
+    if kind == "cnn":
+        return EfficientNetMammo(variant=variant, in_channels=in_channels, pooling=pooling,
+                                 dtype=dtype)
+    raise ValueError(f"image_encoder.model_type must be cnn, swin or vit, got {kind!r}")
+
+
 ResidentStep = Callable[..., None]
 
 
@@ -143,13 +175,15 @@ class BreastClip:
         dev = resolve_device(device)  # before building: no GPU fails fast
         cfg = model_config or default_model_config()
         ie, te, ph = cfg["image_encoder"], cfg["text_encoder"], cfg.get("projection_head", {})
-        if ie.get("model_type", "cnn") != "cnn":
-            raise NotImplementedError(f"image tower {ie.get('model_type')!r} is not ported yet")
         name = ie.get("name", "tf_efficientnet_b5_ns-detect")
+        tower = ie.get("model_type", "cnn")
+        geometry = _TOWER_GEOMETRY.get(tower, ())
         module = BreastClipModule(
             image_variant=ie.get("variant", "efficientnet-b5"),
             in_channels=ie.get("in_channels", 3),
             image_pooling=ie.get("pooling", "avg" if name.endswith("-detect") else "gem"),
+            image_tower=tower,
+            image_kwargs={k: v for k, v in ie.items() if k in geometry},
             text_pooling=te.get("pooling", "eos"),
             proj_dim=ph.get("proj_dim", 512),
             proj_head=ph.get("name", "linear"),
@@ -159,7 +193,8 @@ class BreastClip:
             bert_layers=bert_layers,
             dtype=dtype,
         )
-        init_weights(module, torch.Generator().manual_seed(seed))
+        init = {"swin": init_swin_weights, "vit": init_vit_weights}.get(tower, init_weights)
+        init(module, torch.Generator().manual_seed(seed))
         if ckpt_path:
             load_breastclip_checkpoint(ckpt_path, module)
         return cls(module.to(dev).eval(), tokenizer=tokenizer, device=dev)
@@ -200,7 +235,9 @@ class BreastClip:
         """uint8 batch on the device -> ({"blocks.i": pooled}, projected embedding):
         min-max + mean/std on the device, one tower forward."""
         x = u8_minmax_meanstd(u8, mean, std)
-        pooled, captured = self.module.image_encoder(x, capture=capture, pool_mode=pool_mode)
+        if not capture:
+            return {}, self.module.project_image(self.module.encode_image(x))
+        pooled, captured = self.module.encode_image(x, capture=capture, pool_mode=pool_mode)
         return captured, self.module.project_image(pooled)
 
     @torch.inference_mode()

@@ -44,6 +44,7 @@ from mammodissect_torch.models.layers import (
     init_weights,
     l2_normalized,
     nchw_from_nhwc,
+    same_pad_patches,
 )
 from mammodissect_torch.ops.pooling import pool_activation
 
@@ -134,11 +135,8 @@ class ClipVisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, capture: Sequence[int] = ()):
         """x [B, 3, H, W] -> (embedding [B, output_dim], {"layers.i": [B, T, D] f32})."""
-        p, hw = self.patch_size, tuple(x.shape[2:])
-        pad_h, pad_w = (-x.shape[2]) % p, (-x.shape[3]) % p  # flax SAME at stride = kernel
-        if pad_h or pad_w:
-            x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
-        x = self.conv1(x)
+        hw = tuple(x.shape[2:])
+        x = self.conv1(same_pad_patches(x, self.patch_size))
         b, width = x.shape[:2]
         x = x.flatten(2).transpose(1, 2)  # [B, grid*grid, width], row-major as NHWC
         x = torch.cat([self.class_embedding.to(x.dtype).expand(b, 1, width), x], dim=1)

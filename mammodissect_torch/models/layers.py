@@ -12,10 +12,13 @@
 - Linear / Conv2d: compute in `compute_dtype`, by default their weight's dtype;
   the input, weight and bias are cast at use (flax's `dtype=` over `param_dtype=`:
   float32 master weights with bf16 compute in fine-tuning).
-- attend: the CLIP towers' plain attention (scores scaled after q.k^T, softmax in
-  float32), shared by the ViT blocks and the ModifiedResNet attention pool.
+- attend: plain attention (scores scaled after q.k^T, softmax in float32), shared
+  by the CLIP ViT blocks, the ModifiedResNet attention pool and the HF ViT encoder.
 - GeM, LinearProjectionHead, MLPProjectionHead, LinearClassifier.
 - init_weights: random weights from an explicit torch.Generator.
+- same_pad_patches: flax's SAME padding before a patch conv (stride = kernel).
+- HFDense: one Linear held as `dense`, HF's naming of the transformer towers'
+  output layers.
 - nchw_from_nhwc / l2_normalized: the NHWC numpy batch of a dissector or target
   interface as an NCHW tensor on the device, and embeddings back as L2-normalized
   numpy (the CLIP towers).
@@ -225,6 +228,23 @@ class LinearClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)
+
+
+def same_pad_patches(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """NCHW x padded as flax's SAME pads a conv whose stride is its kernel: to a
+    multiple of `patch`, the extra row or column at the bottom and right."""
+    pad_h, pad_w = (-x.shape[2]) % patch, (-x.shape[3]) % patch
+    if pad_h or pad_w:
+        x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
+    return x
+
+
+class HFDense(nn.Module):
+    """One Linear held as `dense` (HF's `attention.output`, `intermediate`, `output`)."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.dense = Linear(d_in, d_out)
 
 
 def nchw_from_nhwc(images, device) -> torch.Tensor:

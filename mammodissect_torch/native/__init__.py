@@ -1,20 +1,25 @@
-"""Native host-side span packer of the packed uint8 wire (C++ through ctypes).
+"""Native host-side image kernels (C++ through ctypes): the float eval resize and
+the span packer of the packed uint8 wire.
 
-The port's own copy of the packing part of `mammodissect/native/`: `fastimage.cpp`
-is built with g++ on first use into `build/mammodissect_torch/`, under a file name
-that carries a digest of the source and the flags (as `ops/kernels.py` builds the
-CUDA kernels), so an edited source is rebuilt and a stale library is never loaded.
-The build uses no `-march=native`: a build directory copied to another machine
-must still run there.
+The port's own copy of `mammodissect/native/`: `fastimage.cpp` is built with g++
+on first use into `build/mammodissect_torch/`, under a file name that carries a
+digest of the source and the flags (as `ops/kernels.py` builds the CUDA kernels),
+so an edited source is rebuilt and a stale library is never loaded.
+The build uses no `-march=native` (a build directory copied to another machine
+must still run there), only `-mfma` on x86-64, which every x86 server CPU since 2013
+has.
 
-When no compiler is found, `available()` is False and `dissect/packing.py` packs
-with numpy instead: the same bytes, more host time. The packer reports which one
-it used (`packing.native_packer`)."""
+When no compiler is found, `available()` is False: `data/transforms.py` then
+resizes float eval images with PIL (which antialiases when it shrinks, so the
+pixels differ from the native resize's), and `dissect/packing.py` packs with numpy
+(the same bytes, more host time). The packer reports which one it used
+(`packing.native_packer`)."""
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -24,7 +29,12 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "fastimage.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mammodissect_torch"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# -mfma on x86-64: the JAX package builds its copy with -march=native, which lets g++
+# contract a*b + c into fused multiply-adds on any x86 host of the last decade; built
+# without them, the resize's sample coordinates round otherwise, and a 1520x912
+# upsample differs by up to ~3e-5 (with them the two libraries agree bit for bit)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17",
+             *(("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ()))
 
 _lock = threading.Lock()
 _lib = None
@@ -67,6 +77,16 @@ def get_lib():
             lib = ctypes.CDLL(str(path))
         except OSError:
             return None
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.fi_resize_normalize.argtypes = [f32p, ctypes.c_int, ctypes.c_int, f32p,
+                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_float, ctypes.c_float]
+        lib.fi_resize_normalize.restype = None
+        lib.fi_batch_resize_normalize.argtypes = [f32p, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_int, f32p, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                  ctypes.c_float, ctypes.c_int]
+        lib.fi_batch_resize_normalize.restype = None
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -87,8 +107,38 @@ def available() -> bool:
 def _require():
     lib = get_lib()
     if lib is None:
-        raise RuntimeError("native span packer unavailable (no g++ or the build failed)")
+        raise RuntimeError("native fastimage unavailable (no g++ or the build failed)")
     return lib
+
+
+def resize_normalize(src: np.ndarray, size_hw, mean: float, std: float,
+                     minmax: bool = True) -> np.ndarray:
+    """Bilinear resize (cv2-style: pixel centres, no antialiasing) of a [H, W] or
+    [H, W, 1] float32 image to `size_hw`, then min-max over the resized image (when
+    `minmax`) and mean/std: [h, w, 1] float32."""
+    lib = _require()
+    img = np.ascontiguousarray(np.squeeze(src, -1) if src.ndim == 3 else src, dtype=np.float32)
+    dh, dw = size_hw
+    out = np.empty((dh, dw), np.float32)
+    lib.fi_resize_normalize(img, img.shape[0], img.shape[1], out, dh, dw, 1 if minmax else 0,
+                            float(mean), float(std))
+    return out[..., None]
+
+
+def batch_resize_normalize(src: np.ndarray, size_hw, mean: float, std: float,
+                           minmax: bool = True, n_threads: int | None = None) -> np.ndarray:
+    """`resize_normalize` of a [N, H, W] or [N, H, W, 1] float32 batch, threaded
+    across images: [N, h, w, 1] float32."""
+    lib = _require()
+    arr = np.ascontiguousarray(np.squeeze(src, -1) if src.ndim == 4 else src, dtype=np.float32)
+    n, sh, sw = arr.shape
+    dh, dw = size_hw
+    out = np.empty((n, dh, dw), np.float32)
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 4, 16)
+    lib.fi_batch_resize_normalize(arr, n, sh, sw, out, dh, dw, 1 if minmax else 0,
+                                  float(mean), float(std), int(n_threads))
+    return out[..., None]
 
 
 def batch_row_spans(u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -1,5 +1,12 @@
-// Packed-wire host kernels of the dissection harvest (dissect/packing.py): the
-// packing part of mammodissect/native/fastimage.cpp, copied.
+// Native host kernels of the port's data paths: the eval resize of the float32
+// image path and the packed-wire span packer of the dissection harvest
+// (dissect/packing.py), copied from mammodissect/native/fastimage.cpp.
+//
+// fi_resize_normalize / fi_batch_resize_normalize: the float eval pipeline
+// (resize to the probe's size, then min-max, then mean/std,
+// `Datasets/dataset_concepts.py:212-215`) in one pass per output pixel, with the
+// cv2-style bilinear sample at pixel centres and no antialiasing, as the JAX
+// package's data path resizes whenever this library builds.
 //
 // The packed uint8 wire's host cost is per-ROW work over [B, H, W, C] batches:
 // find each row's [first, last] nonzero span, then copy span bytes contiguously
@@ -10,12 +17,86 @@
 // first use.
 
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <thread>
 #include <vector>
 
 extern "C" {
+
+static inline float bilinear_sample(const float* src, int sh, int sw, float y, float x) {
+  int y0 = (int)y;
+  int x0 = (int)x;
+  int y1 = y0 + 1 < sh ? y0 + 1 : sh - 1;
+  int x1 = x0 + 1 < sw ? x0 + 1 : sw - 1;
+  float fy = y - y0;
+  float fx = x - x0;
+  const float* r0 = src + (size_t)y0 * sw;
+  const float* r1 = src + (size_t)y1 * sw;
+  float top = r0[x0] * (1.f - fx) + r0[x1] * fx;
+  float bot = r1[x0] * (1.f - fx) + r1[x1] * fx;
+  return top * (1.f - fy) + bot * fy;
+}
+
+// Bilinear resample of float32 [sh, sw] -> [dh, dw], sampling at pixel centres
+// with scale = src/dst (the source coordinate clamped to the image), then
+// (x - lo)/(hi - lo) over the RESIZED image when do_minmax, then (x - mean)/std:
+// pass 1 resizes while tracking min/max, pass 2 applies the fused affine
+// x' = ((x - lo)/(hi - lo) - mean)/std = x*a + b.
+void fi_resize_normalize(const float* src, int sh, int sw, float* dst, int dh, int dw,
+                         int do_minmax, float mean, float std_) {
+  float scale_y = (float)sh / dh;
+  float scale_x = (float)sw / dw;
+  float lo = 3.4e38f, hi = -3.4e38f;
+  for (int oy = 0; oy < dh; ++oy) {
+    float sy = (oy + 0.5f) * scale_y - 0.5f;
+    if (sy < 0) sy = 0;
+    if (sy > sh - 1) sy = (float)(sh - 1);
+    for (int ox = 0; ox < dw; ++ox) {
+      float sx = (ox + 0.5f) * scale_x - 0.5f;
+      if (sx < 0) sx = 0;
+      if (sx > sw - 1) sx = (float)(sw - 1);
+      float v = bilinear_sample(src, sh, sw, sy, sx);
+      if (v < lo) lo = v;
+      if (v > hi) hi = v;
+      dst[(size_t)oy * dw + ox] = v;
+    }
+  }
+  float inv_std = 1.f / std_;
+  float a, b;
+  if (do_minmax) {
+    float inv_range = hi > lo ? 1.f / (hi - lo) : 0.f;
+    a = inv_range * inv_std;
+    b = (-lo * inv_range - mean) * inv_std;
+  } else {
+    a = inv_std;
+    b = -mean * inv_std;
+  }
+  for (size_t i = 0; i < (size_t)dh * dw; ++i) dst[i] = dst[i] * a + b;
+}
+
+// fi_resize_normalize over a batch [n, sh, sw] -> [n, dh, dw], images spread over
+// n_threads threads.
+void fi_batch_resize_normalize(const float* src, int n, int sh, int sw, float* dst,
+                               int dh, int dw, int do_minmax, float mean, float std_,
+                               int n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  std::atomic<int> next(0);
+  auto worker = [&]() {
+    for (;;) {
+      int i = next.fetch_add(1);
+      if (i >= n) return;
+      fi_resize_normalize(src + (size_t)i * sh * sw, sh, sw,
+                          dst + (size_t)i * dh * dw, dh, dw, do_minmax, mean, std_);
+    }
+  };
+  std::vector<std::thread> threads;
+  int nt = n_threads < n ? n_threads : n;
+  threads.reserve(nt);
+  for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
+  for (auto& th : threads) th.join();
+}
 
 // Per-row nonzero spans of [n_rows] rows, each [W, C] uint8: start/length int32.
 // "Nonzero" = any channel nonzero (matches packing.row_spans).

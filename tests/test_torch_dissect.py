@@ -149,14 +149,17 @@ def test_formerly_refused_paths_run(setup, tmp_path, change, log):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"target_model": "breastclip_swin"}, "item 14"),
-    ({"target_model": "vit_b_16", "clip_model": "ViT-B/16"}, "item 14"),
+    ({"target_model": "breastclip_classifier",
+      "target_kwargs": {"arch": "upmc_breast_clip_efficientnetv2-s_ft"}}, "item 20"),
+    ({"target_model": "breastclip_classifier",
+      "target_kwargs": {"arch": "upmc_breast_clip_det_v2_ft"}}, "item 20"),
     ({"target_model": "breastclip_classifier", "finetuned_ckpt": "<dir>"}, "orbax"),
 ])
 def test_unported_paths_raise(setup, tmp_path, change, match):
-    """What the port still refuses: the Swin and torchvision-style ViT targets (the
-    target zoo; the CLIP dissector they are paired with here is ported) and the JAX
-    trainer's orbax checkpoints (fine-tuning)."""
+    """What the port still refuses: the EfficientNetV2 classifier archs, by either
+    spelling (FusedMBConv, roadmap item 20), and the JAX trainer's orbax checkpoints
+    (fine-tuning). The target zoo this test refused before is held to the JAX
+    package by tests/test_torch_zoo.py."""
     images, _, _ = setup
     kw = _base()
     kw.update(change)

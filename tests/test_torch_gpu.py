@@ -330,3 +330,44 @@ def test_vit_block_cuda_matches_cpu(cuda, causal):
         got = copy.deepcopy(block).to(cuda)(x.to(cuda)).cpu()
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name,kw,layers,hw", [
+    ("resnet50", {}, ["conv1", "layer1", "layer2", "layer3", "layer4"], (64, 48)),
+    ("vit", dict(width=64, layers=2, heads=2), ["layers.0", "layers.1"], (80, 48)),
+    ("breastclip_swin", dict(spec={"embed": 32, "depths": [2, 2, 2], "heads": [2, 2, 4]},
+                             in_channels=1), ["layers.0", "layers.1", "layers.2"], (92, 60)),
+])
+def test_zoo_targets_cuda_match_cpu(cuda, name, kw, layers, hw):
+    """A zoo target's harvest on the card equals the CPU's at float32 with TF32 off
+    (the ResNet at full width; the ViT off its native grid; the Swin padded and
+    cropped), each capture within 1e-4 of its largest entry."""
+    from mammodissect_torch.dissect.targets import get_target_model
+
+    x = np.random.default_rng(10).normal(size=(3, *hw, 1)).astype(np.float32)
+    got = get_target_model(name, device="cuda", **kw).harvest(x, layers, "avg")
+    want = get_target_model(name, device="cpu", **kw).harvest(x, layers, "avg")
+    assert sorted(got) == sorted(want) == sorted(layers)
+    for k in layers:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4 * np.abs(want[k]).max())
+
+
+@pytest.mark.parametrize("tower,geometry", [
+    ("swin", {"spec": {"embed": 32, "depths": [2, 2], "heads": [2, 4]}}),
+    ("vit", {"width": 64, "layers": 2, "heads": 2}),
+])
+def test_breastclip_towers_cuda_match_cpu(cuda, tower, geometry):
+    """BreastClip with a narrow Swin or ViT image tower embeds the same images on the
+    card as on the CPU (float32, TF32 off), float and uint8 batches."""
+    from mammodissect_torch.models.breastclip import BreastClip
+
+    cfg = {"image_encoder": {"model_type": tower, "in_channels": 3, **geometry},
+           "text_encoder": {}, "projection_head": {"proj_dim": 32}}
+    x = np.random.default_rng(11).normal(size=(4, 96, 64, 1)).astype(np.float32)
+    u8 = np.random.default_rng(12).integers(0, 256, size=(4, 96, 64, 1), dtype=np.uint8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        clip = BreastClip.create(model_config=cfg, bert_layers=1, vocab_size=50, device=dev)
+        out[dev] = (clip.embed_images(x), clip.embed_images_u8(u8, 0.3, 0.25))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

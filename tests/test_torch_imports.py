@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "forbidden: []" in proc.stdout
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 56, proc.stdout  # every module of the package was imported
+    assert n_modules >= 59, proc.stdout  # every module of the package was imported
 
 
 @pytest.fixture
@@ -97,6 +97,37 @@ def test_clip_entry_points_raise_without_a_gpu(no_cuda):
         get_target_model("clip_rn50", input_size=32)
     with pytest.raises(RuntimeError, match="GPU"), pytest.warns(UserWarning, match="RANDOM"):
         default_text_embedder("clip", **tiny)
+
+
+def test_zoo_entry_points_raise_without_a_gpu(no_cuda, tmp_path):
+    """The zoo targets, BreastClip's other towers and the scoring helpers default to
+    CUDA: without a GPU they raise, and nothing scores quietly on the CPU."""
+    import numpy as np
+
+    from mammodissect_torch.dissect.engine import (
+        get_similarity_from_activations,
+        score_all_layers,
+    )
+    from mammodissect_torch.dissect.targets import get_target_model
+    from mammodissect_torch.models.breastclip import BreastClip
+    from mammodissect_torch.ops.similarity import soft_wpmi
+
+    for name, kw in (("resnet18", {}), ("resnet18_places", {}), ("vit-bloodmnist", {}),
+                     ("breastclip_swin", {})):
+        with pytest.raises(RuntimeError, match="GPU"):
+            get_target_model(name, **kw)
+    for tower in ("swin", "vit"):
+        cfg = {"image_encoder": {"model_type": tower}, "text_encoder": {}}
+        with pytest.raises(RuntimeError, match="GPU"):
+            BreastClip.create(model_config=cfg, bert_layers=1)
+    paths = []
+    for name, arr in (("t", np.ones((4, 3))), ("c", np.ones((4, 2))), ("x", np.ones((5, 2)))):
+        np.save(tmp_path / f"{name}.npy", arr.astype(np.float32))
+        paths.append(str(tmp_path / f"{name}.npy"))
+    with pytest.raises(RuntimeError, match="GPU"):
+        score_all_layers({"l": np.ones((4, 3), np.float32)}, paths[1], paths[2], "soft_wpmi")
+    with pytest.raises(RuntimeError, match="GPU"):
+        get_similarity_from_activations(*paths, soft_wpmi)
 
 
 def _finetune_data(root, n=12, hw=(32, 24)):

@@ -8,6 +8,7 @@ from PIL import Image
 import mammodissect.data.probes as J
 import mammodissect.data.transforms as JT
 import mammodissect_torch.data.probes as P
+import mammodissect_torch.data.transforms as T
 
 
 @pytest.fixture(scope="module")
@@ -33,10 +34,13 @@ def test_csv_probe_matches_jax(image_dir):
     assert len(pp) == len(jp) == 3 and pp.image_shape == jp.image_shape == (20, 16, 1)
     for i in range(3):
         np.testing.assert_array_equal(pp.image_u8(i), jp.image_u8(i))
-        # the JAX package may resize float images natively; its PIL path is the copy's
+        # float images resize natively in both packages; the PIL fallback (no g++)
+        # is held to the JAX package's
+        np.testing.assert_allclose(pp.image(i), jp.image(i), rtol=1e-6, atol=1e-6)
         arr = JT.load_image(str(image_dir / jp.df.iloc[i]["image_path"]), grayscale=True)
         want = JT.gray_resize_normalize(arr, (20, 16), jp.mean, jp.std, prefer_native=False)
-        np.testing.assert_allclose(pp.image(i), want, rtol=1e-6, atol=1e-6)
+        got = T.gray_resize_normalize(arr, (20, 16), jp.mean, jp.std, prefer_native=False)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
         assert pp.label(i) == jp.label(i)
 
 

@@ -116,7 +116,7 @@ def test_second_run_reads_the_cache(tmp_path):
     first, _ = run_dissection(cfg, target=pt, log=lambda *_: None)
     names = get_save_names("random", "tiny_cnn", "blocks.3", "synthetic", kw["concept_set"],
                            "avg", str(tmp_path / "a"))
-    sim, feats = get_similarity_from_activations(*names, soft_wpmi, top_k=16)
+    sim, feats = get_similarity_from_activations(*names, soft_wpmi, top_k=16, device="cpu")
     jsim, jfeats = jax_sim(*names, jax_soft_wpmi, top_k=16)
     np.testing.assert_array_equal(feats, jfeats)
     np.testing.assert_allclose(sim, jsim, rtol=1e-5, atol=1e-5 * np.abs(jsim).max())
