@@ -77,6 +77,22 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      on the card and on the CPU by a narrow CLIP ViT: identical top-1 concepts and top
      images; BreastClip with a narrow Swin and a narrow ViT image tower embedding the
      same images on both (1e-4 on the unit-norm embeddings).
+ 13. the rest of the EfficientNet family and contrastive pretraining: (a) the staged
+     C-dissect of an EfficientNetV2-S classifier (fp32 as the JAX target, all 40
+     blocks: 6544 units, random weights from seed 2) on phase 8's 512 mammograms at
+     1520x912, reading phase 8's dissector caches: img/s, harvest seconds, peak
+     memory, kernel 2 launched 28 times a batch and kernel 1 once; kernel 1 at its
+     shape, and kernel 2 against its plain version at each V2 MBConv shape in fp32 and
+     bf16, timed with its bound; (b) the space-to-depth stem against the plain stem of
+     B5 at 1520x912, batch 16, fp32 and bf16, both timed; (c) ten timed pretraining
+     steps at full width (B5 + 12-layer BERT, bf16 over fp32 weights, batch 4 with the
+     second text view and the image view, 256 tokens), without and with BERT's
+     gradient checkpoint in turns (plain, checkpoint, checkpoint, plain), then batch 8
+     once (fits or not, and the peak), no kernel
+     launched; (d) `cli.pretrain` for one epoch on phase 10's PNGs with a generated
+     CSV of *_FINDING labels; its final.pth builds the breastclip dissector with equal
+     weights; (e) three narrow pretraining steps and a V2-S tower on the card and on
+     the CPU.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -339,6 +355,24 @@ def phase_wpmi(n_images, device):
     return row
 
 
+def mbconv_bound(b, h, w, cin, cexp, k, dtype):
+    """Kernel 2's bound (phases 5, 8 and 13): each input read once and the
+    output written once at 3.35 TB/s, or the operations: bf16, the expand at 989
+    TFLOP/s on the tensor cores beside the depthwise at 67 TFLOP/s fp32; fp32 (TF32
+    off), both at 67 TFLOP/s; whichever is longer."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    pix = b * h * w
+    t_bytes = (pix * (cin + cexp) * size + (cin * cexp + k * k * cexp) * size
+               + 4 * cexp * 4) / HBM_BYTES_PER_S * 1e3
+    expand, dw = 2 * pix * cin * cexp, 2 * k * k * pix * cexp
+    t_ops = (max(expand / BF16_TENSOR_FLOPS, dw / FP32_FLOPS) if bf16
+             else (expand + dw) / FP32_FLOPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=False):
     """Random inputs of kernel 2. bf16 uses the scales of tests/test_pallas_mbconv.py
     (x 0.1, weights 0.05), where its 2e-3/2e-2 tolerance was set: at unit scale a
@@ -403,13 +437,7 @@ def phase_mbconv(device):
             if name == "bf16":
                 row["ms"] = cuda_ms(lambda: fused_expand_dw(*args), reps=5)
                 row["plain_ms"] = cuda_ms(lambda: expand_dw_plain(*args), reps=2)
-                pix = b * h * w
-                bytes_ = pix * (cin + cexp) * 2 + (cin * cexp + k * k * cexp) * 2 + 4 * cexp * 4
-                t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-                t_expand = 2 * pix * cin * cexp / BF16_TENSOR_FLOPS * 1e3
-                t_dw = 2 * k * k * pix * cexp / FP32_FLOPS * 1e3
-                row["bound_ms"] = max(t_bytes, t_expand, t_dw)
-                row["bound_by"] = "bytes" if t_bytes >= max(t_expand, t_dw) else "operations"
+                row.update(mbconv_bound(b, h, w, cin, cexp, k, dtype))
             del args, got, want, err
         rows.append(row)
         say(f"[kernel 2] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH} bf16: "
@@ -514,12 +542,7 @@ def fp32_mbconv_rows(device):
         del got, want, err
         row["ms"] = cuda_ms(lambda: fused_expand_dw(*args), reps=3)
         row["plain_ms"] = cuda_ms(lambda: expand_dw_plain(*args), reps=1)
-        pix = MAIN_BATCH * h * w
-        bytes_ = pix * (cin + cexp) * 4 + (cin * cexp + k * k * cexp) * 4 + 4 * cexp * 4
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = (2 * pix * cin * cexp + 2 * k * k * pix * cexp) / FP32_FLOPS * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row.update(mbconv_bound(MAIN_BATCH, h, w, cin, cexp, k, torch.float32))
         rows.append(row)
         say(f"[kernel 2 fp32] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH}: {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
@@ -1374,6 +1397,444 @@ def phase_zoo(device, gdissect, c_dissect, pool):
     return {"runs": rows, "kernel1": kernel1, "card_vs_cpu": agree}
 
 
+# (k, H, W, Cin, Cexp, number of V2-S blocks of this shape) at 1520x912: the 28
+# stride-1 expanded MBConv blocks of EfficientNetV2-S, kernel 2's V2 shapes
+V2_SHAPES = [
+    (3, 95, 57, 128, 512, 5),      # blocks 11-15
+    (3, 95, 57, 128, 768, 1),      # 16
+    (3, 95, 57, 160, 960, 8),      # 17-24
+    (3, 48, 29, 256, 1536, 14),    # 26-39
+]
+V2_ARCH = "upmc_breast_clip_efficientnetv2-s_ft"
+V2_UNITS = 24 * 2 + 48 * 4 + 64 * 4 + 128 * 6 + 160 * 9 + 256 * 15  # 6544, all 40 blocks
+PT_BATCH, PT_TIMED_STEPS, PT_TEXT_LEN = 4, 10, 256  # pretraining: B5 + BERT at full width
+PT_CLI_ROWS = 8        # rows of the pretrain CLI's CSV (two PNGs each)
+
+
+def v2_mbconv_rows(device):
+    """(a): kernel 2 against its plain version at each V2-S MBConv shape at the
+    C-dissect's batch, fp32 (tol 1e-4 + 1e-4|x|) and bf16 (the scales and 2e-3/2e-2
+    of phase 4), each timed with its plain version and its bound."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
+
+    rows = []
+    for i, (k, h, w, cin, cexp, n_blocks) in enumerate(V2_SHAPES):
+        row = {"k": k, "H": h, "W": w, "Cin": cin, "Cexp": cexp, "blocks": n_blocks}
+        for name, dtype, (atol, rtol) in (("fp32", torch.float32, (1e-4, 1e-4)),
+                                          ("bf16", torch.bfloat16, (2e-3, 2e-2))):
+            args = _mbconv_args(MAIN_BATCH, h, w, cin, cexp, k, dtype, device, seed=50 + i)
+            got = fused_expand_dw(*args).float()
+            want = expand_dw_plain(*args).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            check(bool((err <= atol + rtol * want.abs()).all()),
+                  f"kernel 2 {name} disagrees at the V2 shape {row}: max abs err {float(err.max())}")
+            del got, want
+            bound = mbconv_bound(MAIN_BATCH, h, w, cin, cexp, k, dtype)
+            row[name] = {"max_abs_err": float(err.max()),
+                         "ms": cuda_ms(lambda: fused_expand_dw(*args), reps=3),
+                         "plain_ms": cuda_ms(lambda: expand_dw_plain(*args), reps=1), **bound}
+            del args, err
+        rows.append(row)
+        say(f"[kernel 2 V2] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH} ({n_blocks} blocks): "
+            + "; ".join(f"{d} {row[d]['ms']:.4f} ms, plain {row[d]['plain_ms']:.3f} ms, bound "
+                        f"{row[d]['bound_ms']:.4f} ms ({row[d]['bound_by']}), max abs err "
+                        f"{row[d]['max_abs_err']:.3g}" for d in ("fp32", "bf16")))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def v2_c_dissect(device, pool, c_dissect):
+    """(a): the staged C-dissect of a V2-S classifier (fp32, all 40 blocks, random
+    weights from seed 2) on phase 8's 512 mammograms, reading phase 8's dissector
+    caches: 28 kernel-2 launches a batch, one kernel-1 launch."""
+    import torch
+
+    from mammodissect_torch.dissect.engine import DissectConfig, get_save_names
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_v2_")
+    acts = os.path.join(work, "acts")
+    os.makedirs(acts)
+    # the target's cache names equal phase 8's B5 ones: link only the dissector's files
+    _, clip_src, text_src = get_save_names("breastclip", "breastclip_classifier", "blocks.0",
+                                           "synthetic_mammo", CONCEPTS, "avg",
+                                           os.path.join(c_dissect["work"], "acts"))
+    for src in (clip_src, text_src):
+        check(os.path.exists(src), f"phase 8's dissector cache {src} is missing")
+        os.symlink(src, os.path.join(acts, os.path.basename(src)))
+    cfg = DissectConfig(target_model="breastclip_classifier", clip_model="breastclip",
+                        target_layers=[f"blocks.{i}" for i in range(40)], d_probe="synthetic_mammo",
+                        concept_set=CONCEPTS, batch_size=MAIN_BATCH, similarity_fn="soft_wpmi",
+                        resident=False, device=device.type,
+                        target_kwargs={"arch": V2_ARCH, "seed": 2}, activation_dir=acts,
+                        result_dir=os.path.join(work, "results"))
+    n_batches = -(-C_DISSECT_N // MAIN_BATCH)
+    df, logs, wall, launches, peak = gdissect_run(cfg, CyclicProbe(pool, C_DISSECT_N))
+    stages = stage_seconds(logs)
+    check(len(df) == V2_UNITS, f"V2 C-dissect CSV has {len(df)} rows, expected {V2_UNITS}")
+    check(np.isfinite(csv_similarities(df)).all(), "V2 C-dissect: non-finite similarities")
+    check(any(l.startswith(f"[harvest] {C_DISSECT_N} images x 40 layers") for l in logs),
+          f"V2 C-dissect did not harvest all 40 blocks: {logs}")
+    check("[clip-img] probe embeddings cached, skipping" in logs
+          and not {"dissector", "clip-txt", "clip-img"} & set(stages),
+          f"V2 C-dissect did not read phase 8's dissector caches: {logs}")
+    check(launches == {"mbconv": 28 * n_batches, "wpmi": 1},
+          f"V2 C-dissect: launches {launches}, expected 28 x {n_batches} kernel-2 and 1 kernel-1")
+    row = {"units": V2_UNITS, "images": C_DISSECT_N, "batch": MAIN_BATCH, "wall_s": wall,
+           "img_per_s": C_DISSECT_N / wall, "harvest_s": stages.get("harvest"),
+           "harvest_img_per_s": C_DISSECT_N / stages["harvest"], "stages_s": stages,
+           "max_memory_allocated_bytes": peak, "launches": launches, "rows": len(df)}
+    say(f"[v2 c-dissect] V2-S classifier fp32 x 40 blocks ({V2_UNITS} units), {C_DISSECT_N} "
+        f"images at {IMAGE_HW[0]}x{IMAGE_HW[1]}, dissected by the bf16 breastclip from phase 8's "
+        f"caches: {wall:.2f} s wall, {row['img_per_s']:.2f} img/s, harvest {row['harvest_s']:.2f} "
+        f"s ({row['harvest_img_per_s']:.2f} img/s); stages {stages} s; peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches} (28 a batch of {MAIN_BATCH}); {len(df)} CSV rows, finite")
+    torch.cuda.empty_cache()
+    return row
+
+
+def stem_vs_s2d(device, pool):
+    """(b): the space-to-depth stem against the plain stem of B5 at 1520x912, batch 16
+    (the static chain's pad ((0, 1), (0, 1))), bf16 and fp32: equal within 1e-5 (fp32)
+    or 2 bf16 ulps (8e-3) of the largest output, both timed."""
+    import torch
+
+    from mammodissect_torch.models.efficientnet import EfficientNet
+    from mammodissect_torch.models.layers import init_weights
+    from mammodissect_torch.ops.normalize import u8_minmax_meanstd
+
+    u8 = torch.from_numpy(np.ascontiguousarray(pool[:MAIN_BATCH])).to(device)
+    x = u8_minmax_meanstd(u8, 0.3089279, 0.25053555).permute(0, 3, 1, 2).expand(-1, 3, -1, -1)
+    x = x.contiguous(memory_format=torch.channels_last)
+    out = {}
+    for name, dtype, tol in (("fp32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 8e-3)):
+        plain = EfficientNet("efficientnet-b5", in_channels=3, dtype=dtype)
+        init_weights(plain._conv_stem, torch.Generator().manual_seed(12))
+        plain = plain.to(device)
+        fast = copy.deepcopy(plain)
+        fast.s2d_stem = True
+        pad = plain._paddings(IMAGE_HW)[0]
+        check(pad == ((0, 1), (0, 1)), f"B5's stem pad at {IMAGE_HW} is {pad}")
+        with torch.no_grad():
+            want = plain._stem(x, pad).float()
+            got = fast._stem(x, pad).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max()) / float(want.abs().max())
+            check(err <= tol, f"s2d stem {name}: {err:.3g} of the largest output, tol {tol}")
+            row = {"max_rel_err": err, "tol": tol,
+                   "plain_ms": cuda_ms(lambda: plain._stem(x, pad), reps=10, warmup=2),
+                   "s2d_ms": cuda_ms(lambda: fast._stem(x, pad), reps=10, warmup=2)}
+            row["plain_ms_again"] = cuda_ms(lambda: plain._stem(x, pad), reps=10)
+            row["s2d_ms_again"] = cuda_ms(lambda: fast._stem(x, pad), reps=10)
+        out[name] = row
+        say(f"[stem] B5 stem 3->48 at {IMAGE_HW[0]}x{IMAGE_HW[1]} B={MAIN_BATCH} {name}: s2d vs "
+            f"plain {err:.3g} of the largest output (tol {tol}); plain {row['plain_ms']:.4f}, "
+            f"{row['plain_ms_again']:.4f} ms, s2d {row['s2d_ms']:.4f}, {row['s2d_ms_again']:.4f} ms "
+            f"(in turns: plain, s2d, plain, s2d)")
+        del plain, fast, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pt_batches(pool, n, batch, seed):
+    """n collated pretraining batches at full width on the u8 wire: images and image
+    views from the pool, two report texts per image from the canonical prompts,
+    WordPiece (toy vocab) to 256 tokens."""
+    from mammodissect_torch.data.prompts import generate_report_from_labels
+    from mammodissect_torch.models.tokenizers import WordPieceTokenizer
+
+    with open(os.path.join(ROOT, "mammodissect", "assets", "dataset", "prompts.json")) as f:
+        prompts = json.load(f)
+    findings = sorted(prompts)
+    tok = WordPieceTokenizer.toy()
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        idx = rng.choice(len(pool), size=2 * batch, replace=False)
+        texts = [generate_report_from_labels(
+            [[findings[int(rng.integers(len(findings)))]], [], [], []], prompts, rng=rng)
+            for _ in range(2 * batch)]
+        t1, t2 = tok(texts[:batch], max_length=PT_TEXT_LEN), tok(texts[batch:], max_length=PT_TEXT_LEN)
+        out.append({"images": pool[idx[:batch]], "image_views": pool[idx[batch:]],
+                    "input_ids": t1["input_ids"], "attention_mask": t1["attention_mask"],
+                    "input_ids2": t2["input_ids"], "attention_mask2": t2["attention_mask"]})
+    return out, tok
+
+
+def pretrain_steps(device, pool):
+    """(c): timed contrastive pretraining steps at full width: B5 + 12-layer BERT at
+    1520x912, bf16 compute over fp32 weights, the second text view and the image view
+    (8 image-tower passes a step at batch 4), without and with BERT's gradient
+    checkpoint; then batch 8 once, to learn whether it fits."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+    from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
+    from mammodissect_torch.train.pretrain import PretrainConfig, build_clip
+    from mammodissect_torch.train.trainer import make_optimizer
+
+    batches, tok = _pt_batches(pool, 2 + PT_TIMED_STEPS, PT_BATCH, seed=13)
+    t0 = time.perf_counter()
+    model = build_clip(PretrainConfig(device=device.type), tok, device).module
+    build_s = time.perf_counter() - t0
+    optimizer, scheduler = make_optimizer(model, 5e-5, 1e-4, 100, 1000)
+    step = make_clip_train_step(model, optimizer, scheduler, input_wire="u8",
+                                norm_mean=0.3089279, norm_std=0.25053555,
+                                generator=torch.Generator(device=device).manual_seed(14))
+    last = len(model.text_encoder.encoder.layer) - 1
+    watched = ("image_encoder._conv_stem.weight", "image_encoder._blocks.20._bn1.running_var",
+               f"text_encoder.encoder.layer.{last}.output.dense.weight", "logit_scale",
+               "image_projection.projection.weight")
+    before = {k: model.state_dict()[k].detach().clone() for k in watched}
+
+    def run(bs, checkpointed):
+        model.text_encoder.encoder.grad_checkpoint = checkpointed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_expand_dw.launches = 0
+        soft_wpmi_gather_logsum.launches = 0
+        losses = [float(step(batch_to_device(b, device))) for b in bs[:2]]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [step(batch_to_device(b, device)) for b in bs[2:]]
+        end.record()
+        torch.cuda.synchronize()
+        losses = [float(l) for l in losses]
+        n = len(bs) - 2
+        return {"batch": len(bs[0]["images"]), "bert_checkpoint": checkpointed,
+                "ms_per_step": start.elapsed_time(end) / n,
+                "img_per_s": 2 * len(bs[0]["images"]) * n * 1e3 / start.elapsed_time(end),
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "losses": losses,
+                "launches": {"mbconv": fused_expand_dw.launches,
+                             "wpmi": soft_wpmi_gather_logsum.launches}}
+
+    # in turns: plain, checkpoint, checkpoint, plain
+    turns = [run(batches, ckpt) for ckpt in (False, True, True, False)]
+    rows = {"plain": turns[0], "bert_checkpoint": turns[1],
+            "bert_checkpoint_again": turns[2], "plain_again": turns[3]}
+    state = model.state_dict()
+    unchanged = [k for k in watched if torch.equal(state[k], before[k])]
+    check(not unchanged, f"pretraining: unchanged after the steps: {unchanged}")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "pretraining: parameters are not float32")
+    for name, r in rows.items():
+        check(bool(np.isfinite(r["losses"]).all()), f"pretraining ({name}): losses {r['losses']}")
+        check(r["launches"] == {"mbconv": 0, "wpmi": 0},
+              f"pretraining ({name}): kernel launches {r['launches']} in train steps")
+        say(f"[pretrain] B5 + 12-layer BERT at {IMAGE_HW[0]}x{IMAGE_HW[1]}, batch {r['batch']} "
+            f"(+ image views: {2 * r['batch']} tower passes a step), {PT_TEXT_LEN} tokens x 2 "
+            f"texts, bf16 over fp32 weights, BERT checkpoint {r['bert_checkpoint']}: "
+            f"{r['ms_per_step']:.2f} ms a step ({r['img_per_s']:.2f} tower images/s) over "
+            f"{PT_TIMED_STEPS} timed steps, peak {r['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+            f"losses {[round(l, 4) for l in r['losses']]}; launches {r['launches']}")
+    del batches
+    big, _ = _pt_batches(pool, 3, 2 * PT_BATCH, seed=15)
+    try:
+        rows["batch8"] = run(big, False)
+        rows["batch8"]["fits"] = True
+        say(f"[pretrain] batch {2 * PT_BATCH}: fits, {rows['batch8']['ms_per_step']:.2f} ms a step "
+            f"(1 timed), peak {rows['batch8']['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    except torch.cuda.OutOfMemoryError:
+        rows["batch8"] = {"batch": 2 * PT_BATCH, "fits": False,
+                          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        say(f"[pretrain] batch {2 * PT_BATCH}: out of memory (peak before the failure "
+            f"{rows['batch8']['max_memory_allocated_bytes'] / 2**30:.2f} GiB)")
+    optimizer.zero_grad(set_to_none=True)
+    del model, optimizer, step, big
+    torch.cuda.empty_cache()
+    rows["build_s"] = build_s
+    return rows
+
+
+def pretrain_cli(device, png_root):
+    """(d): `cli.pretrain` for one short epoch on phase 10's mammogram PNGs with a
+    generated CSV of *_FINDING labels (the default prompts.json), batch 4; its
+    `final.pth` then builds the breastclip dissector."""
+    import contextlib
+    import io
+
+    import pandas as pd
+    import torch
+
+    from mammodissect_torch.cli.pretrain import main as pretrain_main
+    from mammodissect_torch.dissect.dissectors import get_dissector
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+    from mammodissect_torch.train.checkpoints import load_checkpoint
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_pt_")
+    findings = ["Mass", "Suspicious Calcification", "No Finding", "Focal Asymmetry"]
+    rows = [{"view": "['CC', 'MLO']", "CC": f"['m{2 * i}.png']", "MLO": f"['m{2 * i + 1}.png']",
+             "CC_FINDING": str([[findings[i % 4]], [], [], []]),
+             "MLO_FINDING": str([[], [findings[(i + 1) % 4]], [], []])} for i in range(PT_CLI_ROWS)]
+    pd.DataFrame(rows).to_csv(os.path.join(work, "pretrain.csv"), index=False)
+    argv = ["--csv-file", os.path.join(work, "pretrain.csv"), "--root", png_root, "--epochs", "1",
+            "--batch-size", str(PT_BATCH), "--warmup-steps", "1",
+            "--img-size", str(IMAGE_HW[0]), str(IMAGE_HW[1]),
+            "--checkpoints", os.path.join(work, "ck"), "--device", device.type]
+    out = io.StringIO()
+    cwd = os.getcwd()
+    fused_expand_dw.launches = 0
+    soft_wpmi_gather_logsum.launches = 0
+    t0 = time.perf_counter()
+    os.chdir(work)  # the CLI's tensorboard directory is relative to the working directory
+    try:
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rc = pretrain_main(argv)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches}
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    steps = PT_CLI_ROWS // PT_BATCH
+    check(rc == 0 and result["steps"] == steps and np.isfinite(result["last_loss"]),
+          f"cli.pretrain: rc {rc}, result {result}")
+    check(launches == {"mbconv": 0, "wpmi": 0}, f"cli.pretrain launched kernels: {launches}")
+    saved = load_checkpoint(result["final_checkpoint"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # toy WordPiece vocab
+        dissector = get_dissector("breastclip", ckpt_path=result["final_checkpoint"],
+                                  device=device.type, dtype="float32", bert_layers=12)
+    state = dissector.module.state_dict()
+    check(set(state) == set(saved["model"])
+          and all(torch.equal(state[k].cpu(), v) for k, v in saved["model"].items()),
+          "the dissector built from final.pth differs from the checkpoint")
+    u8 = _pngs_u8(png_root, 4)
+    emb = dissector.embed_images_u8(u8, 0.3089279, 0.25053555)
+    check(emb.shape == (len(u8), 512) and np.isfinite(emb).all(),
+          "the dissector from final.pth gave no finite embeddings")
+    row = {"rows": PT_CLI_ROWS, "steps": result["steps"], "last_loss": result["last_loss"],
+           "wall_s": wall, "launches": launches,
+           "checkpoint_bytes": os.path.getsize(result["final_checkpoint"])}
+    say(f"[pretrain] cli.pretrain, {PT_CLI_ROWS} rows x 2 PNGs at {IMAGE_HW[0]}x{IMAGE_HW[1]}, "
+        f"batch {PT_BATCH}, one epoch: {result['steps']} steps, last loss "
+        f"{result['last_loss']:.4f}, {wall:.2f} s wall (model build and host loading "
+        f"included); final.pth ({row['checkpoint_bytes']} bytes) built the breastclip "
+        f"dissector with equal weights, finite embeddings; launches {launches}")
+    del dissector
+    torch.cuda.empty_cache()
+    return row
+
+
+def _pngs_u8(png_root, n):
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(os.path.join(png_root, f"m{i}.png")))[..., None]
+                     for i in range(n)])
+
+
+def pretrain_and_v2_card_vs_cpu():
+    """(e): three narrow fp32 pretraining steps (efficientnet-test, 2-layer BERT, both
+    second views, u8 wire; the shift-invariant BatchNorm and key biases frozen) on the
+    card and on the CPU: losses within 1e-4 relative, every weight and statistic within
+    1e-5 + 1e-3 of its tensor's largest entry but for at most 1e-4 of the entries
+    (gradients of rounding noise, which Adam turns into +-lr steps), all within 6 lr;
+    and a V2-S tower (fp32, eval) at 64x64 on both: 28 kernel-2 launches on the card,
+    each of the 40 blocks within 1e-4 of the largest entry."""
+    import torch
+
+    from mammodissect_torch.models.breastclip import BreastClipModule
+    from mammodissect_torch.models.efficientnet import EfficientNet
+    from mammodissect_torch.models.layers import init_weights
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
+    from mammodissect_torch.train.trainer import make_optimizer
+
+    narrow = dict(image_variant="efficientnet-test", bert_layers=2, bert_hidden=64,
+                  bert_heads=2, bert_intermediate=128, proj_dim=32, vocab_size=64)
+    base = BreastClipModule(**narrow)
+    init_weights(base, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    batches = [{"images": rng.integers(0, 256, (6, 64, 48, 1), dtype=np.uint8),
+                "image_views": rng.integers(0, 256, (6, 64, 48, 1), dtype=np.uint8),
+                "input_ids": rng.integers(5, 64, (6, 12)), "attention_mask": np.ones((6, 12)),
+                "input_ids2": rng.integers(5, 64, (6, 12)), "attention_mask2": np.ones((6, 12))}
+               for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = BreastClipModule(**narrow)
+        model.load_state_dict(base.state_dict())
+        model.to(dev)
+        labels = {k: "frozen" if k.endswith(("_bn2.bias", "attention.self.key.bias")) else "train"
+                  for k, _ in model.named_parameters()}
+        optimizer, scheduler = make_optimizer(model, 1e-3, 1e-4, 1, 10, param_labels=labels)
+        step = make_clip_train_step(model, optimizer, scheduler, input_wire="u8",
+                                    norm_mean=0.3, norm_std=0.25)
+        losses = [float(step(batch_to_device(b, torch.device(dev)))) for b in batches]
+        runs[dev] = ({k: v.cpu() for k, v in model.state_dict().items()}, losses)
+    (cpu, cpu_losses), (gpu, gpu_losses) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
+    outside = total = 0
+    worst = 0.0
+    for k, v in cpu.items():
+        if v.is_floating_point():
+            err = (gpu[k] - v).abs()
+            outside += int((err > 1e-5 + 1e-3 * float(v.abs().max())).sum())
+            total += v.numel()
+            worst = max(worst, float(err.max()))
+    check(loss_err <= 1e-4, f"pretrain card vs CPU: losses {gpu_losses} vs {cpu_losses}")
+    check(outside <= 1e-4 * total and worst <= 6e-3,
+          f"pretrain card vs CPU: {outside} of {total} entries outside the tolerance, worst {worst}")
+    say(f"[pretrain] card vs CPU, 3 narrow fp32 steps (TF32 off): losses "
+        f"{[round(l, 6) for l in gpu_losses]} vs {[round(l, 6) for l in cpu_losses]} (max rel err "
+        f"{loss_err:.3g}, tol 1e-4); {outside} of {total} entries outside 1e-5 + 1e-3 max|x| "
+        f"(tol 1e-4 of them), largest difference {worst:.3g} (tol 6 lr = 6e-3)")
+
+    tower = EfficientNet("efficientnetv2-s", in_channels=3)
+    init_weights(tower, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 64, 64, 1)).astype(np.float32))
+    caps = {}
+    for dev in ("cpu", "cuda"):
+        m = tower.to(dev).eval()
+        fused_expand_dw.launches = 0
+        with torch.no_grad():
+            _, captured = m(x.to(dev), capture=tuple(range(40)))
+        caps[dev] = ({k: v.cpu() for k, v in captured.items()}, fused_expand_dw.launches)
+    errs = {k: float((caps["cuda"][0][k] - v).abs().max() / v.abs().max())
+            for k, v in caps["cpu"][0].items()}
+    v2_worst = max(errs, key=errs.get)
+    check(caps["cuda"][1] == 28 and caps["cpu"][1] == 0,
+          f"V2 tower: kernel-2 launches card {caps['cuda'][1]}, CPU {caps['cpu'][1]}")
+    check(len(errs) == 40 and errs[v2_worst] <= 1e-4,
+          f"V2 tower card vs CPU: {v2_worst} at {errs[v2_worst]:.3g} of the largest entry")
+    say(f"[v2] V2-S tower fp32 at 64x64 card vs CPU: 40 blocks within {errs[v2_worst]:.3g} of "
+        f"the largest entry (tol 1e-4; worst {v2_worst}); kernel 2 launched 28 times on the card")
+    return {"pretrain_loss_max_rel_err": loss_err, "pretrain_entries_outside": outside,
+            "pretrain_entries": total, "pretrain_worst_abs_err": worst,
+            "v2_max_rel_err": errs[v2_worst], "v2_worst": v2_worst}
+
+
+def phase_v2_pretrain(device, pool, c_dissect, png_root):
+    """Phase 13: the rest of the EfficientNet family and contrastive pretraining."""
+    import torch
+
+    from mammodissect_torch.dissect.engine import read_concepts
+
+    c_v2 = v2_c_dissect(device, pool, c_dissect)
+    kernel1 = wpmi_gdissect_shape(device, V2_UNITS, len(read_concepts(CONCEPTS)), 100,
+                                  C_DISSECT_N, label="V2 C-dissect")
+    shapes = v2_mbconv_rows(device)
+    per_forward = {d: {key: sum(r[d][key] * r["blocks"] for r in shapes)
+                       for key in ("ms", "plain_ms", "bound_ms")} for d in ("fp32", "bf16")}
+    for d, f in per_forward.items():
+        say(f"[kernel 2 V2] one V2-S forward's 28 launches at batch {MAIN_BATCH}, {d}: "
+            f"{f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
+    stem = stem_vs_s2d(device, pool)
+    pt = pretrain_steps(device, pool)
+    cli = pretrain_cli(device, png_root)
+    torch.cuda.empty_cache()
+    agree = pretrain_and_v2_card_vs_cpu()
+    return {"c_dissect_v2": c_v2, "kernel1": kernel1, "v2_shapes": shapes,
+            "v2_forward": per_forward, "stem": stem, "pretrain": pt, "pretrain_cli": cli,
+            "card_vs_cpu": agree}
+
+
 def main():
     import torch
 
@@ -1411,6 +1872,14 @@ def main():
     t0 = time.perf_counter()
     zoo = phase_zoo(device, gdissect, c_dissect, pool)
     say(f"[zoo] phase 12 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v2pt = phase_v2_pretrain(device, pool, c_dissect, finetune["end_to_end"]["png_root"])
+    say(f"[v2/pretrain] phase 13 in {time.perf_counter() - t0:.1f} s")
+    pt_launches = {key: [v2pt["pretrain"][name]["launches"][key]
+                         for name in ("plain", "bert_checkpoint", "bert_checkpoint_again",
+                                      "plain_again")] + [v2pt["pretrain_cli"]["launches"][key]]
+                   for key in ("mbconv", "wpmi")}
 
     per_forward = lambda key: sum(r[key] * r["blocks"] for r in mbconv)  # noqa: E731
     t_bytes_share = sum(r["bound_ms"] * r["blocks"] for r in mbconv if r["bound_by"] == "bytes")
@@ -1434,7 +1903,12 @@ def main():
          # at the G-dissect shape (U = 9216 ViT-B/16 units, N = 2048: the gather design)
          "gdissect": gdissect["kernel1"],
          # at each zoo dissection's shape (phase 12)
-         "zoo": zoo["kernel1"]},
+         "zoo": zoo["kernel1"],
+         # the V2-S C-dissect (phase 13a: 40 blocks, 6544 units, N = 512) and pretraining
+         # (phase 13c/d: the two timed runs and the CLI's epoch)
+         "launches_c_dissect_v2": v2pt["c_dissect_v2"]["launches"]["wpmi"],
+         "launches_pretrain": pt_launches["wpmi"],
+         "c_dissect_v2": v2pt["kernel1"]},
         {"name": "fused_expand_dw", "route": "cuda",
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
@@ -1456,7 +1930,12 @@ def main():
          # the fp32 instantiation (the C-dissect target's), one forward at batch 16
          "fp32_ms": c_dissect["fp32_forward_ms"], "fp32_plain_ms": c_dissect["fp32_forward_plain_ms"],
          "fp32_bound_ms": c_dissect["fp32_forward_bound_ms"],
-         "fp32_max_abs_err": c_dissect["fp32_max_abs_err"]},
+         "fp32_max_abs_err": c_dissect["fp32_max_abs_err"],
+         # the V2-S C-dissect's target: 28 a batch of 16 (phase 13a); pretraining: 0
+         "launches_c_dissect_v2": v2pt["c_dissect_v2"]["launches"]["mbconv"],
+         "launches_pretrain": pt_launches["mbconv"],
+         # at each V2-S shape, fp32 and bf16, batch 16, and one V2-S forward's 28 launches
+         "v2_shapes": v2pt["v2_shapes"], "v2_forward": v2pt["v2_forward"]},
     ]
     say(f"[kernel 2] one forward's 32 launches at batch {MAIN_BATCH}, bf16: "
         f"{per_forward('ms'):.3f} ms (first version {FIRST_VERSION_MS['mbconv_forward']} ms), "
@@ -1468,6 +1947,9 @@ def main():
         f"{finetune['train_remat']['ms_per_step']:.2f}), "
         f"G-dissect {gdissect['vit']['img_per_s']:.2f} img/s, zoo "
         f"{ {n: round(r['img_per_s'], 2) for n, r in zoo['runs'].items()} } img/s, "
+        f"V2 C-dissect {v2pt['c_dissect_v2']['img_per_s']:.2f} img/s, pretrain "
+        f"{v2pt['pretrain']['plain']['ms_per_step']:.2f} ms a step (BERT checkpoint "
+        f"{v2pt['pretrain']['bert_checkpoint']['ms_per_step']:.2f}), "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

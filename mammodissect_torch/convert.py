@@ -8,7 +8,10 @@
   running_var, LayerNorm scale/bias -> weight/bias. It lets a test run the same
   weights through both packages.
 - `classifier_from_jax(variables)`: the JAX package's BreastClipClassifierModule
-  variables -> the port's classifier state dict (`image_encoder.*`, `classifier.fc.*`).
+  variables -> the port's classifier state dict (`image_encoder.*`, `classifier.fc.*`),
+  B family or V2.
+- `mammo_efficientnet_from_jax(variables)`: the JAX package's
+  MammoEfficientNetModule variables -> the port's (`encoder.*`, `fc.*`).
 - `clip_from_jax(variables)`: the JAX package's ClipModule params -> the port's
   ClipModule state dict in OpenAI's names (the inverse of `clip_torch_to_flax`);
   vision-only and text-only trees give the entries of their tower.
@@ -67,7 +70,8 @@ def _layer_norm(sd, dst, params):
 
 
 def efficientnet_from_jax(params: Mapping, stats: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """One EfficientNet backbone's Flax params/batch_stats -> lukemelas names."""
+    """One EfficientNet backbone's Flax params/batch_stats -> lukemelas names (the
+    B family's MBConv blocks and V2's FusedMBConv blocks)."""
     sd: Dict[str, torch.Tensor] = {}
     sd[f"{prefix}_conv_stem.weight"] = _conv(params["stem_conv"]["kernel"])
     _bn(sd, f"{prefix}_bn0", params["stem_bn"], stats["stem_bn"])
@@ -77,8 +81,9 @@ def efficientnet_from_jax(params: Mapping, stats: Mapping, prefix: str = "") -> 
         if "expand_conv" in p:
             sd[f"{dst}._expand_conv.weight"] = _conv(p["expand_conv"]["kernel"])
             _bn(sd, f"{dst}._bn0", p["bn0"], s["bn0"])
-        sd[f"{dst}._depthwise_conv.weight"] = _conv(p["depthwise_conv"]["kernel"])
-        _bn(sd, f"{dst}._bn1", p["bn1"], s["bn1"])
+        if "depthwise_conv" in p:  # MBConv; a FusedMBConv block (V2) has none
+            sd[f"{dst}._depthwise_conv.weight"] = _conv(p["depthwise_conv"]["kernel"])
+            _bn(sd, f"{dst}._bn1", p["bn1"], s["bn1"])
         if "se" in p:
             for name in ("se_reduce", "se_expand"):
                 sd[f"{dst}._{name}.weight"] = _conv(p["se"][name]["kernel"])
@@ -142,6 +147,18 @@ def classifier_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd = efficientnet_from_jax(params["image_encoder"]["backbone"],
                                stats["image_encoder"]["backbone"], prefix="image_encoder.")
     _linear(sd, "classifier.fc", params["classifier"]["fc"])
+    return sd
+
+
+def mammo_efficientnet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MammoEfficientNetModule variables {"params", "batch_stats"} (numpy
+    leaves) -> state dict of the port's MammoEfficientNetModule (`encoder.*` with
+    the GeM exponent `encoder.pool.p`, `fc.*`)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = efficientnet_from_jax(params["encoder"]["backbone"], stats["encoder"]["backbone"],
+                               prefix="encoder.")
+    sd["encoder.pool.p"] = _t(params["encoder"]["pool"]["p"])
+    _linear(sd, "fc", params["fc"])
     return sd
 
 

@@ -10,8 +10,9 @@ and the EfficientNet targets also
 where `layers` are canonical names ("blocks.i", see capture.py). Every requested
 layer comes from one forward. Targets:
 - the EfficientNets `tiny_cnn`, `breastclip` (the Mammo-CLIP image encoder) and
-  `breastclip_classifier` (the fine-tuned classifier of C-Mammo-CLIP Dissect),
-  layers "blocks.i";
+  `breastclip_classifier` (the fine-tuned classifier of C-Mammo-CLIP Dissect: the
+  B family, or EfficientNetV2-S with its 40 blocks for an `*efficientnetv2*` /
+  `*_v2*` arch), layers "blocks.i";
 - `breastclip_swin`, the Swin image tower of a Swin-towered Mammo-CLIP, layers
   "layers.i" (its stages);
 - registered when their module is imported (`get_target_model` imports it): the
@@ -163,10 +164,7 @@ def _breastclip_classifier(ckpt_path: Optional[str] = None,
     Loads the Mammo-CLIP encoder from `ckpt_path`, then the fine-tuned `.pth` over
     it when given (the reference's, or one `train.checkpoints` wrote)."""
     take_kwargs(kw, ("image_shape",), "breastclip_classifier")
-    variant = arch_variant(arch)
-    if variant.startswith("efficientnetv2"):
-        raise NotImplementedError(f"arch {arch!r}: EfficientNetV2 (FusedMBConv) is not "
-                                  "ported yet (roadmap item 20)")
+    variant = arch_variant(arch)  # the B family, or V2-S for *efficientnetv2* / *_v2*
     if finetuned_ckpt and os.path.isdir(finetuned_ckpt):
         raise NotImplementedError(
             f"finetuned_ckpt {finetuned_ckpt!r} is an orbax directory, a checkpoint of the "

@@ -8,7 +8,11 @@ is a plain matmul + softmax, as in the JAX module: scores plus an additive
 in float32; the dense layers run in `dtype`.
 
 Geometry: 12 layers, hidden 768, 12 heads, intermediate 3072, vocab 28996,
-512 positions."""
+512 positions. No dropout, as in the JAX module. `param_dtype` (default: `dtype`)
+stores the dense layers and embeddings, which compute in `dtype` (pretraining:
+float32 master weights, bf16 compute). `grad_checkpoint` recomputes each layer in
+the backward (`torch.utils.checkpoint`, the counterpart of the JAX module's
+`nn.remat` and of the reference's `gradient_checkpointing`)."""
 from __future__ import annotations
 
 import math
@@ -16,11 +20,17 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mammodissect_torch.models.layers import LayerNorm, Linear
 
 
 class BertEmbeddings(nn.Module):
+    """Word + position + token-type embeddings, each looked up and cast to the
+    compute dtype (flax's `nn.Embed(dtype=...)`) before the sum, then LayerNorm."""
+
+    compute_dtype: torch.dtype | None = None
+
     def __init__(self, vocab_size, hidden_size, max_position_embeddings, type_vocab_size,
                  layer_norm_eps):
         super().__init__()
@@ -30,9 +40,10 @@ class BertEmbeddings(nn.Module):
         self.LayerNorm = LayerNorm(hidden_size, eps=layer_norm_eps)
 
     def forward(self, input_ids, token_type_ids):
+        dtype = self.compute_dtype or self.word_embeddings.weight.dtype
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
-             + self.token_type_embeddings(token_type_ids))
+        x = (self.word_embeddings(input_ids).to(dtype) + self.position_embeddings(pos).to(dtype)
+             + self.token_type_embeddings(token_type_ids).to(dtype))
         return self.LayerNorm(x)
 
 
@@ -109,15 +120,27 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, num_layers, hidden_size, num_heads, intermediate_size, layer_norm_eps):
+    """The layer stack; with `grad_checkpoint`, each layer of a forward that records
+    gradients is recomputed in the backward. The layers draw no random numbers, so
+    no RNG state is saved for the recompute: saving the CUDA generator's state reads
+    it back to the host, a device synchronization in every layer's forward."""
+
+    def __init__(self, num_layers, hidden_size, num_heads, intermediate_size, layer_norm_eps,
+                 grad_checkpoint: bool = False):
         super().__init__()
+        self.grad_checkpoint = grad_checkpoint
         self.layer = nn.ModuleList(
             BertLayer(hidden_size, num_heads, intermediate_size, layer_norm_eps)
             for _ in range(num_layers))
 
     def forward(self, x, attn_bias):
+        remat = self.grad_checkpoint and torch.is_grad_enabled()
         for layer in self.layer:
-            x = layer(x, attn_bias)
+            if remat:
+                x = checkpoint(layer, x, attn_bias, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, attn_bias)
         return x
 
 
@@ -128,15 +151,19 @@ class BertModel(nn.Module):
     def __init__(self, vocab_size: int = 28996, hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, intermediate_size: int = 3072,
                  max_position_embeddings: int = 512, type_vocab_size: int = 2,
-                 layer_norm_eps: float = 1e-12, dtype: torch.dtype = torch.float32):
+                 layer_norm_eps: float = 1e-12, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype | None = None, grad_checkpoint: bool = False):
         super().__init__()
         self.embeddings = BertEmbeddings(vocab_size, hidden_size, max_position_embeddings,
                                          type_vocab_size, layer_norm_eps)
         self.encoder = BertEncoder(num_layers, hidden_size, num_heads, intermediate_size,
-                                   layer_norm_eps)
+                                   layer_norm_eps, grad_checkpoint=grad_checkpoint)
+        param_dtype = dtype if param_dtype is None else param_dtype
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.to(dtype)
+                m.to(param_dtype)
+            if param_dtype != dtype and isinstance(m, (Linear, BertEmbeddings)):
+                m.compute_dtype = dtype
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         if attention_mask is None:

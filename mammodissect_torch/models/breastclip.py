@@ -14,6 +14,17 @@ State-dict names follow the reference: `image_encoder._blocks.i...` (HF names fo
 the swin and vit towers), `text_encoder.encoder.layer.i...`,
 `image_projection.projection`, `text_projection.projection`, `logit_scale`.
 
+`BreastClipModule.forward(batch, generator)` is the training forward of contrastive
+pretraining (`mammodissect/models/breastclip.py:147-167`): the normalized image and
+text embeddings, `labels` = arange(B) and exp(logit_scale), plus
+`text_embeddings2` and `image_view_embeddings` when the batch has `input_ids2` and
+`image_views`. In training mode the image tower normalizes by batch statistics and
+draws its drop-connect masks, and the MLP projection heads their dropout masks,
+from `generator`. `param_dtype` stores the weights (float32 master weights under
+bf16 compute, as JAX's `dtype=bfloat16` module over flax's float32 parameters);
+`s2d_stem` and `grad_checkpoint` are the config's `image_encoder.s2d_stem` and
+`text_encoder.gradient_checkpointing`.
+
 `BreastClip` wraps the module with its tokenizer and device and provides the
 dissector interface (`embed_images`, `embed_images_u8`, `embed_texts`,
 `embed_tokens`), the fused harvest of the staged path
@@ -80,22 +91,28 @@ class BreastClipModule(nn.Module):
 
     def __init__(self, image_variant: str = "efficientnet-b5", in_channels: int = 3,
                  image_pooling: str = "avg", image_tower: str = "cnn",
-                 image_kwargs: Optional[Dict] = None, text_pooling: str = "eos",
-                 proj_dim: int = 512,
+                 image_kwargs: Optional[Dict] = None, s2d_stem: bool = False,
+                 text_pooling: str = "eos", proj_dim: int = 512,
                  proj_head: str = "linear", proj_dropout: float = 0.1,
                  temperature: float = 0.07, vocab_size: int = 28996, bert_layers: int = 12,
                  bert_hidden: int = 768, bert_heads: int = 12, bert_intermediate: int = 3072,
-                 dtype: torch.dtype = torch.float32):
+                 grad_checkpoint: bool = False, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if text_pooling not in ("eos", "bos", "mean"):
             raise NotImplementedError(f"pooling {text_pooling!r}")
         self.text_pooling = text_pooling
         self.proj_dim = proj_dim
+        param_dtype = dtype if param_dtype is None else param_dtype
+        image_kwargs = dict(image_kwargs or {})
+        if image_tower == "cnn":
+            image_kwargs.update(s2d_stem=s2d_stem, param_dtype=param_dtype)
         self.image_encoder = _image_tower(image_tower, image_variant, in_channels, image_pooling,
-                                          dict(image_kwargs or {}), dtype)
+                                          image_kwargs, dtype)
         self.text_encoder = BertModel(vocab_size=vocab_size, hidden_size=bert_hidden,
                                       num_layers=bert_layers, num_heads=bert_heads,
-                                      intermediate_size=bert_intermediate, dtype=dtype)
+                                      intermediate_size=bert_intermediate, dtype=dtype,
+                                      param_dtype=param_dtype, grad_checkpoint=grad_checkpoint)
         if proj_head == "mlp":
             self.image_projection = MLPProjectionHead(self.image_encoder.out_dim, proj_dim,
                                                       proj_dropout)
@@ -105,16 +122,22 @@ class BreastClipModule(nn.Module):
             self.text_projection = LinearProjectionHead(bert_hidden, proj_dim)
         for m in (*self.image_projection.modules(), *self.text_projection.modules()):
             if isinstance(m, nn.Linear):
-                m.to(dtype)
+                m.to(param_dtype)
+                if param_dtype != dtype:
+                    m.compute_dtype = dtype
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / temperature)))
 
     def encode_image(self, images: torch.Tensor, capture: Sequence[int] = (),
-                     pool_mode: str = "avg"):
+                     pool_mode: str = "avg", generator: Optional[torch.Generator] = None):
         """images [B, H, W, C] -> pooled [B, D] float32 (and the captured blocks); a
-        ViT tower's token sequence pools to its CLS token (`model/clip.py:49-52`)."""
+        ViT tower's token sequence pools to its CLS token (`model/clip.py:49-52`).
+        `generator` draws the EfficientNet's drop-connect masks in training."""
         if isinstance(self.image_encoder, ViTImageEncoder):
             feats, captured = self.image_encoder(images, capture=capture)
             pooled = feats[:, 0]
+        elif isinstance(self.image_encoder, EfficientNetMammo):
+            pooled, captured = self.image_encoder(images, capture=capture, pool_mode=pool_mode,
+                                                  generator=generator)
         else:
             pooled, captured = self.image_encoder(images, capture=capture, pool_mode=pool_mode)
         return (pooled, captured) if capture else pooled
@@ -133,16 +156,43 @@ class BreastClipModule(nn.Module):
     def _l2n(emb: torch.Tensor) -> torch.Tensor:
         return emb / torch.linalg.vector_norm(emb.float(), dim=1, keepdim=True)
 
-    def project_image(self, feats: torch.Tensor) -> torch.Tensor:
-        return self._l2n(self.image_projection(feats))
+    def project_image(self, feats: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._l2n(self.image_projection(feats, generator))
 
-    def project_text(self, feats: torch.Tensor) -> torch.Tensor:
-        return self._l2n(self.text_projection(feats))
+    def project_text(self, feats: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._l2n(self.text_projection(feats, generator))
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The `BreastClip.forward` contract (`model/clip.py:103-137`) over a batch of
+        tensors on the module's device: "images" [B, H, W, C] float, "input_ids" and
+        "attention_mask" [B, T]; with "input_ids2"/"attention_mask2" and
+        "image_views", the second text view and the image view too. Random draws
+        (drop-connect in training, the MLP heads' dropout) come from `generator`, in
+        the order image, text, text 2, image view."""
+        def image(x):
+            return self.project_image(self.encode_image(x, generator=generator), generator)
+
+        def text(ids, mask):
+            return self.project_text(self.encode_text(ids, mask), generator)
+
+        image_emb = image(batch["images"])
+        out = {"image_embeddings": image_emb,
+               "text_embeddings": text(batch["input_ids"], batch["attention_mask"]),
+               "labels": torch.arange(image_emb.shape[0], device=image_emb.device),
+               "logit_scale": self.logit_scale.exp()}
+        if "input_ids2" in batch and "image_views" in batch:
+            out["text_embeddings2"] = text(batch["input_ids2"], batch["attention_mask2"])
+            out["image_view_embeddings"] = image(batch["image_views"])
+        return out
 
 
 def _image_tower(kind: str, variant: str, in_channels: int, pooling: str, kw: Dict,
                  dtype: torch.dtype) -> nn.Module:
-    """The image encoder a config's `image_encoder.model_type` names."""
+    """The image encoder a config's `image_encoder.model_type` names (`kw`: the
+    Swin/ViT geometry, or the EfficientNet's `s2d_stem` and `param_dtype`)."""
     if kind == "swin":
         return SwinEncoder(variant=variant if variant.startswith("swin") else "swin-tiny",
                            in_channels=in_channels, dtype=dtype, **kw)
@@ -150,7 +200,7 @@ def _image_tower(kind: str, variant: str, in_channels: int, pooling: str, kw: Di
         return ViTImageEncoder(in_channels=in_channels, dtype=dtype, **kw)
     if kind == "cnn":
         return EfficientNetMammo(variant=variant, in_channels=in_channels, pooling=pooling,
-                                 dtype=dtype)
+                                 dtype=dtype, **kw)
     raise ValueError(f"image_encoder.model_type must be cnn, swin or vit, got {kind!r}")
 
 
@@ -171,7 +221,11 @@ class BreastClip:
     @classmethod
     def create(cls, model_config: Optional[Dict] = None, tokenizer=None, seed: int = 0,
                ckpt_path: Optional[str] = None, dtype: torch.dtype = torch.float32,
-               bert_layers: int = 12, vocab_size: int = 28996, device=None):
+               bert_layers: int = 12, vocab_size: int = 28996, device=None,
+               param_dtype: Optional[torch.dtype] = None):
+        """The module from `model_config` (default: the canonical dissector's) with
+        random weights from `seed`, then the checkpoint's when given, on `device` in
+        eval mode. `dtype` computes, `param_dtype` (default: `dtype`) stores."""
         dev = resolve_device(device)  # before building: no GPU fails fast
         cfg = model_config or default_model_config()
         ie, te, ph = cfg["image_encoder"], cfg["text_encoder"], cfg.get("projection_head", {})
@@ -184,6 +238,7 @@ class BreastClip:
             image_pooling=ie.get("pooling", "avg" if name.endswith("-detect") else "gem"),
             image_tower=tower,
             image_kwargs={k: v for k, v in ie.items() if k in geometry},
+            s2d_stem=bool(ie.get("s2d_stem", False)),
             text_pooling=te.get("pooling", "eos"),
             proj_dim=ph.get("proj_dim", 512),
             proj_head=ph.get("name", "linear"),
@@ -191,7 +246,9 @@ class BreastClip:
             temperature=cfg.get("temperature", 0.07),
             vocab_size=vocab_size,
             bert_layers=bert_layers,
+            grad_checkpoint=bool(te.get("gradient_checkpointing", False)),
             dtype=dtype,
+            param_dtype=param_dtype,
         )
         init = {"swin": init_swin_weights, "vit": init_vit_weights}.get(tower, init_weights)
         init(module, torch.Generator().manual_seed(seed))

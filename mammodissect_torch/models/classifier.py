@@ -10,8 +10,12 @@ Compute dtype float32 by default, as in the JAX package (the C-dissect target).
 Fine-tuning builds it with float32 master weights and bf16 compute
 (`param_dtype=torch.float32, dtype=torch.bfloat16`), trains it in training mode
 (batch-statistics BatchNorm, drop-connect from a generator, optional remat), and
-freezes the encoder of '*_lp' archs with `frozen_param_labels`.
-`MammoEfficientNetModule` is not ported.
+freezes the encoder of '*_lp' archs with `frozen_param_labels`. The EfficientNetV2
+archs (`*efficientnetv2*`, `*_v2*`) build the V2-S encoder.
+
+`MammoEfficientNetModule` is the reference's timm-style `MammoEfficientNet`
+(`model/mamo_efficient_net.py:16-91`): the backbone, GeM pooling and a single-logit
+`fc`, named `encoder.*` and `fc.*`.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 from mammodissect_torch.models.efficientnet import EfficientNetMammo
-from mammodissect_torch.models.layers import LinearClassifier
+from mammodissect_torch.models.layers import Linear, LinearClassifier
 
 
 class BreastClipClassifierModule(nn.Module):
@@ -71,6 +75,29 @@ class BreastClipClassifierModule(nn.Module):
                                              generator=generator)
         logits = self.classifier(pooled)
         return (logits, captured) if capture else logits
+
+
+class MammoEfficientNetModule(nn.Module):
+    """Backbone + GeM + single-logit fc (`mammodissect/models/classifier.py:100-118`).
+
+    forward(x [B, H, W, C] NHWC) -> logits [B, n_class], or (pooled [B, D] float32,
+    logits) with `return_features`. `dtype` computes and stores, as in the encoder;
+    the encoder keeps its static padding and flax's momentum, as in JAX."""
+
+    def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 1,
+                 n_class: int = 1, return_features: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.return_features = return_features
+        self.encoder = EfficientNetMammo(variant=variant, in_channels=in_channels,
+                                         pooling="gem", dtype=dtype)
+        self.fc = Linear(self.encoder.out_dim, n_class).to(dtype)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """`generator` draws the drop-connect masks of a training forward."""
+        pooled, _ = self.encoder(x, generator=generator)
+        logits = self.fc(pooled)
+        return (pooled, logits) if self.return_features else logits
 
 
 def frozen_param_labels(module: nn.Module, freeze_encoder: bool) -> Dict[str, str]:

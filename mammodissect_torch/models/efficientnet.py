@@ -1,4 +1,4 @@
-"""EfficientNet (B0-B7) in PyTorch: the Mammo-CLIP image tower family
+"""EfficientNet (B0-B7, V2-S) in PyTorch: the Mammo-CLIP image tower family
 (counterpart of `mammodissect/models/efficientnet.py`).
 
 - Parameter names are the reference's lukemelas layout (`_conv_stem`, `_bn0`,
@@ -12,10 +12,19 @@
   (456 for B5); at 1520x912 that chain differs from true SAME by one pixel at
   some strided convs, as in the reference (`_paddings`). `pad_mode="same"` is true
   TF-SAME computed from the actual input size (toy geometries far from the chain).
+  EfficientNetV2-S (`efficientnetv2-s`: 40 blocks, the first 10 FusedMBConv, a
+  24-channel stem and a 1280-channel head) always takes true SAME, as in JAX.
 - In eval, every stride-1 MBConv block with an expansion runs its front half (1x1
   expand -> BN -> SiLU -> depthwise -> BN -> SiLU) through
   `ops.cuda_mbconv.fused_expand_dw`, the CUDA kernel on the GPU; strided and
-  expand-1 blocks use `F.conv2d`.
+  expand-1 blocks use `F.conv2d`. A FusedMBConv block (V2) has no depthwise conv:
+  its k x k expand (or single conv), BN, SiLU, 1x1 project and BN run on
+  `F.conv2d`, and its parameters take the lukemelas pattern (`_expand_conv`,
+  `_bn0`, `_project_conv`, `_bn2`).
+- `s2d_stem` (off by default, as in JAX) computes the 3x3/s2 stem as a 2x2/s1 conv
+  over the space-to-depth input [B, 4C, H/2, W/2] with the kernel scattered from
+  the canonical stem weight (`space_to_depth_stem`); odd dims or a pad other than
+  ((0, 1), (0, 1)) take the plain conv, as in JAX.
 - Training (fine-tuning): every block takes the unfused path on `F.conv2d` with
   autograd, chosen on purpose: the fused front folds the BatchNorms' running
   statistics, and training normalizes by batch statistics (BatchNorm2d's flax
@@ -28,7 +37,6 @@
   and computes in bf16; eval then folds the fused front's weights to bf16 too, so
   kernel 2 runs its bf16 instantiation.
 - `capture` pools the named blocks' outputs in float32 as the forward passes them.
-- FusedMBConv (V2) and the space-to-depth stem are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ class BlockArgs:
     output_filters: int
     se_ratio: float
     id_skip: bool = True
+    fused: bool = False  # EfficientNetV2 FusedMBConv
 
 
 # B0 block args, the decoded reference BlockDecoder strings
@@ -94,6 +103,16 @@ EFFICIENTNET_PARAMS: Dict[str, Tuple[float, float, int, float]] = {
     "efficientnet-test": (0.35, 0.1, 64, 0.2),
 }
 
+# EfficientNetV2-S stages: (num_repeat, kernel, stride, expand, in, out, se_ratio, fused)
+V2_S_BLOCK_ARGS: Tuple[Tuple, ...] = (
+    (2, 3, 1, 1, 24, 24, 0.0, True),
+    (4, 3, 2, 4, 24, 48, 0.0, True),
+    (4, 3, 2, 4, 48, 64, 0.0, True),
+    (6, 3, 2, 4, 64, 128, 0.25, False),
+    (9, 3, 1, 6, 128, 160, 0.25, False),
+    (15, 3, 2, 6, 160, 256, 0.25, False),
+)
+
 Pad2d = Tuple[Tuple[int, int], Tuple[int, int]]  # ((top, bottom), (left, right))
 BN_EPS = 1e-3  # TF's BatchNorm eps, as the reference's EfficientNet
 
@@ -117,6 +136,16 @@ def expand_block_args(width_coefficient: float, depth_coefficient: float) -> Tup
         for _ in range(repeats - 1):
             out.append(dataclasses.replace(ba, input_filters=out_f, output_filters=out_f,
                                            stride=1, num_repeat=1))
+    return tuple(out)
+
+
+def v2_block_args() -> Tuple[BlockArgs, ...]:
+    """The flat EfficientNetV2-S block list (no width/depth scaling): 40 blocks, the
+    first 10 FusedMBConv; a stage's repeated blocks get stride 1 and input = output."""
+    out = []
+    for (r, k, s, e, i, o, se, fused) in V2_S_BLOCK_ARGS:
+        out.append(BlockArgs(1, k, s, e, i, o, se, fused=fused))
+        out.extend(BlockArgs(1, k, 1, e, o, o, se, fused=fused) for _ in range(r - 1))
     return tuple(out)
 
 
@@ -243,6 +272,62 @@ class MBConvBlock(nn.Module):
         return x
 
 
+class FusedMBConvBlock(nn.Module):
+    """Fused-MBConv (EfficientNetV2, `mammodissect/models/efficientnet.py:151-188`):
+    with an expansion, a k x k strided expand conv -> BN -> SiLU -> 1x1 project ->
+    BN; without, one k x k conv -> BN -> SiLU. Skip + drop-connect when stride 1 and
+    channels match; no SE. No depthwise conv, so nothing here is kernel 2's."""
+
+    fused_front = False
+
+    def __init__(self, args: BlockArgs, bn_momentum: float = 0.99):
+        super().__init__()
+        self.args = args
+        c_in, c_out, k = args.input_filters, args.output_filters, args.kernel_size
+        c_exp = c_in * args.expand_ratio
+
+        def bn(c):
+            return BatchNorm2d(c, eps=BN_EPS, momentum=1.0 - bn_momentum)
+
+        if args.expand_ratio != 1:
+            self._expand_conv = Conv2d(c_in, c_exp, k, stride=args.stride, bias=False)
+            self._bn0 = bn(c_exp)
+            self._project_conv = Conv2d(c_exp, c_out, 1, bias=False)
+        else:
+            self._project_conv = Conv2d(c_in, c_out, k, stride=args.stride, bias=False)
+        self._bn2 = bn(c_out)
+        self.residual = args.id_skip and args.stride == 1 and c_in == c_out
+
+    def forward(self, x: torch.Tensor, padding: Pad2d, drop_rate: float = 0.0,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`padding` is the k x k conv's; `keep` as in `MBConvBlock.forward`."""
+        inp = x
+        if self.args.expand_ratio != 1:
+            x = F.silu(self._bn0(self._expand_conv(_pad(x, padding))))
+            x = self._bn2(self._project_conv(x))
+        else:
+            x = F.silu(self._bn2(self._project_conv(_pad(x, padding))))
+        if self.residual:
+            x = drop_connect(x, drop_rate, keep) + inp
+        return x
+
+
+def space_to_depth_stem(x: torch.Tensor, conv: Conv2d) -> torch.Tensor:
+    """The 3x3/s2 stem conv with pad ((0, 1), (0, 1)) on an even-sized NCHW x, as a
+    2x2/s1 conv over the space-to-depth input [B, 4C, H/2, W/2] (channel layout
+    (u, v, c), c fastest) with the kernel scattered from the canonical weight:
+    ks[f, (u, v, c), p, q] = w[f, c, 2p + u, 2q + v], zero where 2p + u or 2q + v is 3
+    (`StemConv`, `mammodissect/models/efficientnet.py:250-300`)."""
+    w = conv.weight
+    f, c = w.shape[:2]
+    ks = F.pad(w, (0, 1, 0, 1)).reshape(f, c, 2, 2, 2, 2)  # [F, C, p, u, q, v]
+    ks = ks.permute(0, 3, 5, 1, 2, 4).reshape(f, 4 * c, 2, 2)
+    xs = torch.cat([x[:, :, u::2, v::2] for u in (0, 1) for v in (0, 1)], dim=1)
+    xs = F.pad(xs.contiguous(memory_format=torch.channels_last), (0, 1, 0, 1))
+    dtype = conv.compute_dtype or w.dtype
+    return F.conv2d(xs.to(dtype), ks.to(dtype))
+
+
 @contextlib.contextmanager
 def _running_stats_frozen(module: nn.Module):
     """No BatchNorm2d of `module` updates its running statistics inside: the
@@ -263,32 +348,39 @@ class EfficientNet(nn.Module):
     forward(x [B, H, W, C] NHWC, capture=(i, ...), pool_mode) ->
         (features [B, head_dim, H', W'] NCHW, {"blocks.i": pooled [B, C_i] float32})
 
-    head_dim is round_filters(1280): 2048 for B5. `dtype` is the compute dtype of
-    the convolutions (bfloat16 on the main path), `param_dtype` the dtype they are
-    stored in (default: `dtype`); BatchNorm stays float32. `bn_momentum` is flax's
-    (0.99), `pad_mode` "static" or "same" (`_paddings`), `remat` recomputes each
-    block in the backward of a training forward."""
+    head_dim is round_filters(1280): 2048 for B5, 1280 for V2-S. `dtype` is the
+    compute dtype of the convolutions (bfloat16 on the main path), `param_dtype` the
+    dtype they are stored in (default: `dtype`); BatchNorm stays float32.
+    `bn_momentum` is flax's (0.99), `pad_mode` "static" or "same" (`_paddings`; V2
+    takes "same" whatever is asked), `s2d_stem` the space-to-depth stem, `remat`
+    recomputes each block in the backward of a training forward."""
 
     def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 1,
                  drop_connect_rate: float = 0.2, dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None, bn_momentum: float = 0.99,
-                 pad_mode: str = "static", remat: bool = False):
+                 pad_mode: str = "static", s2d_stem: bool = False, remat: bool = False):
         super().__init__()
         if pad_mode not in ("static", "same"):
             raise ValueError(f"pad_mode must be 'static' or 'same', got {pad_mode!r}")
         self.variant = variant
         self.in_channels = in_channels
         self.drop_connect_rate = drop_connect_rate
-        self.pad_mode = pad_mode
+        self.is_v2 = variant.startswith("efficientnetv2")
+        self.pad_mode = "same" if self.is_v2 else pad_mode  # V2 is always true SAME
+        self.s2d_stem = s2d_stem
         self.remat = remat
-        width, depth, _, _ = EFFICIENTNET_PARAMS[variant]
-        self.block_args = expand_block_args(width, depth)
-        stem = round_filters(32, width)
-        self.out_dim = round_filters(1280, width)
+        if self.is_v2:
+            self.block_args = v2_block_args()
+            stem, self.out_dim = 24, 1280
+        else:
+            width, depth, _, _ = EFFICIENTNET_PARAMS[variant]
+            self.block_args = expand_block_args(width, depth)
+            stem, self.out_dim = round_filters(32, width), round_filters(1280, width)
         bn_torch_momentum = 1.0 - bn_momentum
         self._conv_stem = Conv2d(in_channels, stem, 3, stride=2, bias=False)
         self._bn0 = BatchNorm2d(stem, eps=BN_EPS, momentum=bn_torch_momentum)
-        self._blocks = nn.ModuleList(MBConvBlock(ba, bn_momentum) for ba in self.block_args)
+        self._blocks = nn.ModuleList((FusedMBConvBlock if ba.fused else MBConvBlock)(ba, bn_momentum)
+                                     for ba in self.block_args)
         last = self.block_args[-1].output_filters
         self._conv_head = Conv2d(last, self.out_dim, 1, bias=False)
         self._bn1 = BatchNorm2d(self.out_dim, eps=BN_EPS, momentum=bn_torch_momentum)
@@ -310,10 +402,10 @@ class EfficientNet(nn.Module):
         does not depend on the size). A conv whose traced padding would collapse a
         dim of the actual input to zero takes true SAME for that dim instead, a
         regime where the reference itself fails, so tiny test geometries still run."""
-        res = EFFICIENTNET_PARAMS[self.variant][2]  # the canonical resolution it was traced at
+        same = self.pad_mode == "same"
+        res = 0 if same else EFFICIENTNET_PARAMS[self.variant][2]  # the traced resolution
         size = (res, res)
         actual = tuple(input_hw)
-        same = self.pad_mode == "same"
 
         def pick(traced, act, k, s):
             pads, new_act = [], []
@@ -337,6 +429,14 @@ class EfficientNet(nn.Module):
                 size = (-(-size[0] // ba.stride), -(-size[1] // ba.stride))
         return stem_pad, tuple(pads)
 
+    def _stem(self, x: torch.Tensor, pad: Pad2d) -> torch.Tensor:
+        """The stem conv: space-to-depth where `s2d_stem` is on and applies (even
+        dims, pad ((0, 1), (0, 1))), else the plain 3x3/s2 conv."""
+        if self.s2d_stem and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0 \
+                and pad == ((0, 1), (0, 1)):
+            return space_to_depth_stem(x, self._conv_stem)
+        return self._conv_stem(_pad(x, pad))
+
     def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg",
                 generator: Optional[torch.Generator] = None):
         """`generator` draws the drop-connect masks of a training forward (on x's
@@ -348,7 +448,7 @@ class EfficientNet(nn.Module):
         if x.shape[1] == 1 and self.in_channels > 1:
             x = x.expand(-1, self.in_channels, -1, -1)
         x = x.contiguous(memory_format=torch.channels_last)
-        x = F.silu(self._bn0(self._conv_stem(_pad(x, stem_pad))))
+        x = F.silu(self._bn0(self._stem(x, stem_pad)))
         captured: Dict[str, torch.Tensor] = {}
         n_blocks = len(self._blocks)
         remat = self.remat and torch.is_grad_enabled()

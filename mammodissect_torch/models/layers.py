@@ -14,7 +14,8 @@
   float32 master weights with bf16 compute in fine-tuning).
 - attend: plain attention (scores scaled after q.k^T, softmax in float32), shared
   by the CLIP ViT blocks, the ModifiedResNet attention pool and the HF ViT encoder.
-- GeM, LinearProjectionHead, MLPProjectionHead, LinearClassifier.
+- GeM, LinearProjectionHead, MLPProjectionHead (its dropout, `dropout`, flax's rule
+  with the mask from an explicit torch.Generator), LinearClassifier.
 - init_weights: random weights from an explicit torch.Generator.
 - same_pad_patches: flax's SAME padding before a patch conv (stride = kernel).
 - HFDense: one Linear held as `dense`, HF's naming of the transformer towers'
@@ -191,30 +192,43 @@ class GeM(nn.Module):
 
 
 class LinearProjectionHead(nn.Module):
-    """Single linear projection (reference `model/modules/projection.py:20-28`)."""
+    """Single linear projection (reference `model/modules/projection.py:20-28`);
+    `generator` is accepted for the MLP head's signature (no dropout here)."""
 
     def __init__(self, in_dim: int, embedding_dim: int):
         super().__init__()
         self.projection = Linear(in_dim, embedding_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         return self.projection(x)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's Dropout: in training each element kept with probability 1 - rate (the
+    mask drawn from `generator`, on x's device) and rescaled by 1 / (1 - rate);
+    the identity in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class MLPProjectionHead(nn.Module):
     """linear -> GELU -> linear -> dropout -> residual -> LayerNorm
-    (reference `model/modules/projection.py:4-19`)."""
+    (reference `model/modules/projection.py:4-19`); the dropout mask of a training
+    forward comes from `generator`."""
 
     def __init__(self, in_dim: int, embedding_dim: int, dropout: float = 0.1):
         super().__init__()
         self.projection = Linear(in_dim, embedding_dim)
         self.fc = Linear(embedding_dim, embedding_dim)
-        self.dropout = nn.Dropout(dropout)
+        self.rate = dropout
         self.layer_norm = LayerNorm(embedding_dim, eps=1e-6)  # flax's default eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         projected = self.projection(x)
-        h = self.dropout(self.fc(F.gelu(projected)))
+        h = dropout(self.fc(F.gelu(projected)), self.rate, self.training, generator)
         return self.layer_norm(h + projected)
 
 

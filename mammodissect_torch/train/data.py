@@ -85,12 +85,15 @@ def class_balanced_weights(labels: np.ndarray, sampler_weights: Optional[dict] =
 
 def iter_epoch(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                balanced_weights: Optional[np.ndarray] = None,
-               label_dtype=np.float32) -> Iterator[HostBatch]:
+               label_dtype=np.float32, host_index: int = 0,
+               host_count: int = 1) -> Iterator[HostBatch]:
     """One epoch of fixed-size batches. With `balanced_weights`, len(dataset) indices
     drawn with replacement in proportion to them (WeightedRandomSampler,
     `dataset_utils.py:202-234`). The tail batch is wrap-padded with real rows (not
     zeros, which would enter BatchNorm's batch statistics as fake negatives) and
-    reports its `n_valid`."""
+    reports its `n_valid`. `host_index`/`host_count` give each process its
+    contiguous, equally long, wrap-padded slice of the same seeded order
+    (DistributedSampler, `dataset_utils.py:236-251`)."""
     n = len(dataset)
     rng = np.random.default_rng(seed)
     if balanced_weights is not None:
@@ -99,6 +102,11 @@ def iter_epoch(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
         order = rng.permutation(n)
     else:
         order = np.arange(n)
+    if host_count > 1:
+        shard_len = -(-n // host_count)
+        order = np.resize(order, host_count * shard_len)
+        order = order[host_index * shard_len:(host_index + 1) * shard_len]
+        n = shard_len
     h, w, c = dataset.image_shape
     img_dtype = np.uint8 if getattr(dataset, "wire", "f32") == "u8" else np.float32
     for start in range(0, n, batch_size):

@@ -148,17 +148,33 @@ def test_formerly_refused_paths_run(setup, tmp_path, change, log):
     assert np.isfinite(np.array([row for row in df["similarity"]])).all()
 
 
+@pytest.mark.parametrize("arch", ["upmc_breast_clip_efficientnetv2-s_ft",
+                                  "upmc_breast_clip_det_v2_ft"])
+def test_v2_archs_resolve_to_a_v2_target(arch):
+    """Both spellings of the EfficientNetV2 classifier arch, which the port refused
+    before FusedMBConv was ported, resolve to a 40-block V2-S classifier target on
+    the CPU whose harvest gives every block (tests/test_torch_efficientnet_v2.py
+    holds it to the JAX package)."""
+    from mammodissect_torch.dissect.targets import get_target_model
+    from mammodissect_torch.models.efficientnet import FusedMBConvBlock
+
+    target = get_target_model("breastclip_classifier", arch=arch, device="cpu")
+    blocks = target.model.image_encoder._blocks
+    assert len(blocks) == 40 and sum(isinstance(b, FusedMBConvBlock) for b in blocks) == 10
+    layers = [f"blocks.{i}" for i in range(40)]
+    images = np.random.default_rng(0).normal(size=(2, 32, 32, 1)).astype(np.float32)
+    out = target.harvest(images, layers)
+    assert list(out) == layers and out["blocks.39"].shape == (2, 256)
+    assert all(np.isfinite(v).all() for v in out.values())
+
+
 @pytest.mark.parametrize("change,match", [
-    ({"target_model": "breastclip_classifier",
-      "target_kwargs": {"arch": "upmc_breast_clip_efficientnetv2-s_ft"}}, "item 20"),
-    ({"target_model": "breastclip_classifier",
-      "target_kwargs": {"arch": "upmc_breast_clip_det_v2_ft"}}, "item 20"),
     ({"target_model": "breastclip_classifier", "finetuned_ckpt": "<dir>"}, "orbax"),
 ])
 def test_unported_paths_raise(setup, tmp_path, change, match):
-    """What the port still refuses: the EfficientNetV2 classifier archs, by either
-    spelling (FusedMBConv, roadmap item 20), and the JAX trainer's orbax checkpoints
-    (fine-tuning). The target zoo this test refused before is held to the JAX
+    """What the port still refuses: the JAX trainer's orbax checkpoints (fine-tuning).
+    The EfficientNetV2 archs it refused before resolve now
+    (`test_v2_archs_resolve_to_a_v2_target`); the target zoo is held to the JAX
     package by tests/test_torch_zoo.py."""
     images, _, _ = setup
     kw = _base()

@@ -371,3 +371,75 @@ def test_breastclip_towers_cuda_match_cpu(cuda, tower, geometry):
         out[dev] = (clip.embed_images(x), clip.embed_images_u8(u8, 0.3, 0.25))
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_v2_tower_cuda_matches_cpu(cuda):
+    """The EfficientNetV2-S tower (fp32, eval) at 64x64 on the card and on the CPU:
+    28 kernel-2 launches a forward (its stride-1 expanded MBConv blocks; the
+    FusedMBConv blocks run on cuDNN), every one of the 40 captured blocks within
+    1e-4 of the largest entry."""
+    from mammodissect_torch.models.efficientnet import EfficientNet
+    from mammodissect_torch.models.layers import init_weights
+
+    model = EfficientNet("efficientnetv2-s", in_channels=3)
+    init_weights(model, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 64, 64, 1)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev).eval()
+        before = fused_expand_dw.launches
+        with torch.no_grad():
+            _, captured = m(x.to(dev), capture=tuple(range(40)))
+        out[dev] = {k: v.cpu().numpy() for k, v in captured.items()}
+        assert fused_expand_dw.launches - before == (28 if dev == "cuda" else 0)
+    for k, want in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][k], want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=k)
+
+
+def test_pretrain_step_cuda_matches_cpu(cuda):
+    """Three fp32 contrastive pretraining steps of a narrow BreastClip (efficientnet-test
+    tower, 2-layer BERT, both second views, u8 wire) on the card and on the CPU: the
+    same losses (1e-4 relative); weights and BatchNorm statistics within 1e-5 + 1e-3
+    of each tensor's largest entry, but for at most 1e-4 of the entries (those whose
+    gradient is rounding noise, which Adam turns into +-lr steps), held within 6 lr.
+    The shift-invariant BatchNorm and key biases are frozen; no kernel-2 launch."""
+    from mammodissect_torch.models.breastclip import BreastClipModule
+    from mammodissect_torch.models.layers import init_weights
+    from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
+    from mammodissect_torch.train.trainer import make_optimizer
+
+    narrow = dict(image_variant="efficientnet-test", bert_layers=2, bert_hidden=64,
+                  bert_heads=2, bert_intermediate=128, proj_dim=32, vocab_size=64)
+    base = BreastClipModule(**narrow)
+    init_weights(base, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    batches = [{"images": rng.integers(0, 256, (6, 64, 48, 1), dtype=np.uint8),
+                "image_views": rng.integers(0, 256, (6, 64, 48, 1), dtype=np.uint8),
+                "input_ids": rng.integers(5, 64, (6, 12)), "attention_mask": np.ones((6, 12)),
+                "input_ids2": rng.integers(5, 64, (6, 12)), "attention_mask2": np.ones((6, 12))}
+               for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = BreastClipModule(**narrow)
+        model.load_state_dict(base.state_dict())
+        model.to(dev)
+        labels = {k: "frozen" if k.endswith(("_bn2.bias", "attention.self.key.bias")) else "train"
+                  for k, _ in model.named_parameters()}
+        optimizer, scheduler = make_optimizer(model, 1e-3, 1e-4, 1, 10, param_labels=labels)
+        step = make_clip_train_step(model, optimizer, scheduler, input_wire="u8",
+                                    norm_mean=0.3, norm_std=0.25)
+        before = fused_expand_dw.launches
+        losses = [float(step(batch_to_device(b, torch.device(dev)))) for b in batches]
+        assert fused_expand_dw.launches == before
+        runs[dev] = ({k: v.cpu() for k, v in model.state_dict().items()}, losses)
+    (cpu, cpu_losses), (gpu, gpu_losses) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    outside = total = 0
+    for k, v in cpu.items():
+        if v.is_floating_point():
+            err = (gpu[k] - v).abs()
+            outside += int((err > 1e-5 + 1e-3 * float(v.abs().max())).sum())
+            total += v.numel()
+            assert float(err.max()) <= 6e-3, k
+    assert outside <= 1e-4 * total, outside

@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "forbidden: []" in proc.stdout
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 59, proc.stdout  # every module of the package was imported
+    assert n_modules >= 65, proc.stdout  # every module of the package was imported
 
 
 @pytest.fixture
@@ -187,3 +187,29 @@ def test_finetune_entry_points_raise_without_a_gpu(no_cuda, tmp_path):
         Trainer(model, optimizer)
     with pytest.raises(NotImplementedError, match="item 17"):
         do_experiments(FinetuneConfig(csv_file=cfg.csv_file, model_parallel=2, device="cpu"))
+
+
+def test_pretrain_entry_points_raise_without_a_gpu(no_cuda, tmp_path):
+    """Pretraining and the V2 classifier target default to CUDA: without a GPU the
+    loop, the CLI and the target raise before any step or checkpoint, and the
+    CLI's --model-parallel > 1 names roadmap item 17."""
+    import pandas as pd
+
+    from mammodissect_torch.cli.pretrain import main as pretrain_main
+    from mammodissect_torch.data.imagetext import ImageTextDataset
+    from mammodissect_torch.dissect.targets import get_target_model
+    from mammodissect_torch.train.pretrain import PretrainConfig, pretrain
+
+    df = pd.DataFrame({"image": ["x.png"], "REPORT": ["['mass']"]})
+    df.to_csv(tmp_path / "d.csv", index=False)
+    cfg = PretrainConfig(checkpoints=str(tmp_path / "ck"), tensorboard_path=str(tmp_path / "tb"))
+    with pytest.raises(RuntimeError, match="GPU"):
+        pretrain(cfg, ImageTextDataset(df))
+    argv = ["--csv-file", str(tmp_path / "d.csv"), "--checkpoints", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="GPU"):
+        pretrain_main(argv)
+    assert not (tmp_path / "ck").exists()
+    with pytest.raises(NotImplementedError, match="item 17"):
+        pretrain_main(argv + ["--model-parallel", "2"])
+    with pytest.raises(RuntimeError, match="GPU"):
+        get_target_model("breastclip_classifier", arch="upmc_breast_clip_efficientnetv2-s_ft")
