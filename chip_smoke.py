@@ -83,16 +83,15 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      1520x912, reading phase 8's dissector caches: img/s, harvest seconds, peak
      memory, kernel 2 launched 28 times a batch and kernel 1 once; kernel 1 at its
      shape, and kernel 2 against its plain version at each V2 MBConv shape in fp32 and
-     bf16, timed with its bound; (b) the space-to-depth stem against the plain stem of
-     B5 at 1520x912, batch 16, fp32 and bf16, both timed; (c) ten timed pretraining
-     steps at full width (B5 + 12-layer BERT, bf16 over fp32 weights, batch 4 with the
-     second text view and the image view, 256 tokens), without and with BERT's
-     gradient checkpoint in turns (plain, checkpoint, checkpoint, plain), then batch 8
-     once (fits or not, and the peak), no kernel
-     launched; (d) `cli.pretrain` for one epoch on phase 10's PNGs with a generated
-     CSV of *_FINDING labels; its final.pth builds the breastclip dissector with equal
-     weights; (e) three narrow pretraining steps and a V2-S tower on the card and on
-     the CPU.
+     bf16, timed with its bound; (b) ten timed pretraining steps at full width (B5 +
+     12-layer BERT with Bio_ClinicalBERT's 28996-token vocab, bf16 over fp32 weights,
+     batch 4 with the second text view and the image view, 256 tokens), without and
+     with BERT's gradient checkpoint in turns (plain, checkpoint, checkpoint, plain),
+     one step of each under torch.profiler (the device ops whose time the checkpoint
+     adds), then batch 8 once (fits or not, and the peak), no kernel launched; (c)
+     `cli.pretrain` for one epoch on phase 10's PNGs with a generated CSV of *_FINDING
+     labels; its final.pth builds the breastclip dissector with equal weights; (d)
+     three narrow pretraining steps and a V2-S tower on the card and on the CPU.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -1408,6 +1407,7 @@ V2_SHAPES = [
 V2_ARCH = "upmc_breast_clip_efficientnetv2-s_ft"
 V2_UNITS = 24 * 2 + 48 * 4 + 64 * 4 + 128 * 6 + 160 * 9 + 256 * 15  # 6544, all 40 blocks
 PT_BATCH, PT_TIMED_STEPS, PT_TEXT_LEN = 4, 10, 256  # pretraining: B5 + BERT at full width
+BERT_VOCAB = 28996  # Bio_ClinicalBERT's word embedding rows
 PT_CLI_ROWS = 8        # rows of the pretrain CLI's CSV (two PNGs each)
 
 
@@ -1495,49 +1495,6 @@ def v2_c_dissect(device, pool, c_dissect):
     return row
 
 
-def stem_vs_s2d(device, pool):
-    """(b): the space-to-depth stem against the plain stem of B5 at 1520x912, batch 16
-    (the static chain's pad ((0, 1), (0, 1))), bf16 and fp32: equal within 1e-5 (fp32)
-    or 2 bf16 ulps (8e-3) of the largest output, both timed."""
-    import torch
-
-    from mammodissect_torch.models.efficientnet import EfficientNet
-    from mammodissect_torch.models.layers import init_weights
-    from mammodissect_torch.ops.normalize import u8_minmax_meanstd
-
-    u8 = torch.from_numpy(np.ascontiguousarray(pool[:MAIN_BATCH])).to(device)
-    x = u8_minmax_meanstd(u8, 0.3089279, 0.25053555).permute(0, 3, 1, 2).expand(-1, 3, -1, -1)
-    x = x.contiguous(memory_format=torch.channels_last)
-    out = {}
-    for name, dtype, tol in (("fp32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 8e-3)):
-        plain = EfficientNet("efficientnet-b5", in_channels=3, dtype=dtype)
-        init_weights(plain._conv_stem, torch.Generator().manual_seed(12))
-        plain = plain.to(device)
-        fast = copy.deepcopy(plain)
-        fast.s2d_stem = True
-        pad = plain._paddings(IMAGE_HW)[0]
-        check(pad == ((0, 1), (0, 1)), f"B5's stem pad at {IMAGE_HW} is {pad}")
-        with torch.no_grad():
-            want = plain._stem(x, pad).float()
-            got = fast._stem(x, pad).float()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max()) / float(want.abs().max())
-            check(err <= tol, f"s2d stem {name}: {err:.3g} of the largest output, tol {tol}")
-            row = {"max_rel_err": err, "tol": tol,
-                   "plain_ms": cuda_ms(lambda: plain._stem(x, pad), reps=10, warmup=2),
-                   "s2d_ms": cuda_ms(lambda: fast._stem(x, pad), reps=10, warmup=2)}
-            row["plain_ms_again"] = cuda_ms(lambda: plain._stem(x, pad), reps=10)
-            row["s2d_ms_again"] = cuda_ms(lambda: fast._stem(x, pad), reps=10)
-        out[name] = row
-        say(f"[stem] B5 stem 3->48 at {IMAGE_HW[0]}x{IMAGE_HW[1]} B={MAIN_BATCH} {name}: s2d vs "
-            f"plain {err:.3g} of the largest output (tol {tol}); plain {row['plain_ms']:.4f}, "
-            f"{row['plain_ms_again']:.4f} ms, s2d {row['s2d_ms']:.4f}, {row['s2d_ms_again']:.4f} ms "
-            f"(in turns: plain, s2d, plain, s2d)")
-        del plain, fast, want, got
-    torch.cuda.empty_cache()
-    return out
-
-
 def _pt_batches(pool, n, batch, seed):
     """n collated pretraining batches at full width on the u8 wire: images and image
     views from the pool, two report texts per image from the canonical prompts,
@@ -1563,22 +1520,83 @@ def _pt_batches(pool, n, batch, seed):
     return out, tok
 
 
+def _profile_checkpoint(model, step, batch, device, top=8):
+    """One pretraining step without and one with BERT's gradient checkpoint under
+    torch.profiler: each step's device busy time (the union of its kernels'
+    intervals) and kernel count, and the operators whose kernels the checkpoint
+    adds most (self device time and calls of each operator, each kernel counted
+    once, under the operator that launched it)."""
+    import torch
+    import torch.profiler as tp
+    from torch.autograd import DeviceType
+
+    from mammodissect_torch.train.clip_trainer import batch_to_device
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    runs = {}
+    for checkpointed in (False, True):
+        model.text_encoder.encoder.grad_checkpoint = checkpointed
+        b = batch_to_device(batch, device)
+        torch.cuda.synchronize()
+        with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
+            step(b)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            busy += max(hi - max(lo, end), 0.0)
+            end = max(end, hi)
+        ops = {e.key: (self_us(e) / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and self_us(e) > 0}
+        runs[checkpointed] = {"busy_ms": busy / 1e3, "kernels": len(spans), "ops": ops}
+    model.text_encoder.encoder.grad_checkpoint = False
+    plain, ckpt = runs[False], runs[True]
+    zero = (0.0, 0)
+    delta = sorted(((ckpt["ops"].get(k, zero)[0] - plain["ops"].get(k, zero)[0],
+                     ckpt["ops"].get(k, zero)[1] - plain["ops"].get(k, zero)[1], k)
+                    for k in set(plain["ops"]) | set(ckpt["ops"])), reverse=True)[:top]
+    out = {"plain_busy_ms": plain["busy_ms"], "checkpoint_busy_ms": ckpt["busy_ms"],
+           "plain_kernels": plain["kernels"], "checkpoint_kernels": ckpt["kernels"],
+           "added_ops": [{"op": k, "added_ms": d, "added_calls": n} for d, n, k in delta]}
+    say(f"[pretrain profile] one step, BERT checkpoint off/on: device busy "
+        f"{plain['busy_ms']:.2f} / {ckpt['busy_ms']:.2f} ms, {plain['kernels']} / "
+        f"{ckpt['kernels']} kernels; operators whose kernels the checkpoint adds most: "
+        + "; ".join(f"{o['op']} +{o['added_ms']:.3f} ms (+{o['added_calls']} calls)"
+                    for o in out["added_ops"]))
+    return out
+
+
 def pretrain_steps(device, pool):
-    """(c): timed contrastive pretraining steps at full width: B5 + 12-layer BERT at
+    """(b): timed contrastive pretraining steps at full width: B5 + 12-layer BERT with
+    Bio_ClinicalBERT's 28996-token vocab (the toy WordPiece ids index into it) at
     1520x912, bf16 compute over fp32 weights, the second text view and the image view
     (8 image-tower passes a step at batch 4), without and with BERT's gradient
-    checkpoint; then batch 8 once, to learn whether it fits."""
+    checkpoint; one step of each profiled; then batch 8 once, to learn whether it
+    fits."""
     import torch
 
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
     from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
-    from mammodissect_torch.train.pretrain import PretrainConfig, build_clip
+    from mammodissect_torch.device import resolve_dtype
+    from mammodissect_torch.models.breastclip import BreastClip, default_model_config
+    from mammodissect_torch.train.pretrain import PretrainConfig
     from mammodissect_torch.train.trainer import make_optimizer
 
     batches, tok = _pt_batches(pool, 2 + PT_TIMED_STEPS, PT_BATCH, seed=13)
+    cfg = PretrainConfig(device=device.type)
     t0 = time.perf_counter()
-    model = build_clip(PretrainConfig(device=device.type), tok, device).module
+    # `train.pretrain.build_clip`'s model, with the word embedding sized to
+    # Bio_ClinicalBERT's vocab rather than the toy tokenizer's
+    model_config = default_model_config()
+    model_config["image_encoder"]["variant"] = cfg.image_variant
+    model = BreastClip.create(model_config=model_config, tokenizer=tok, seed=cfg.seed,
+                              bert_layers=cfg.bert_layers, vocab_size=BERT_VOCAB,
+                              dtype=resolve_dtype(cfg.dtype), param_dtype=torch.float32,
+                              device=device).module
     build_s = time.perf_counter() - t0
     optimizer, scheduler = make_optimizer(model, 5e-5, 1e-4, 100, 1000)
     step = make_clip_train_step(model, optimizer, scheduler, input_wire="u8",
@@ -1631,6 +1649,7 @@ def pretrain_steps(device, pool):
             f"{r['ms_per_step']:.2f} ms a step ({r['img_per_s']:.2f} tower images/s) over "
             f"{PT_TIMED_STEPS} timed steps, peak {r['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
             f"losses {[round(l, 4) for l in r['losses']]}; launches {r['launches']}")
+    rows["profile"] = _profile_checkpoint(model, step, batches[0], device)
     del batches
     big, _ = _pt_batches(pool, 3, 2 * PT_BATCH, seed=15)
     try:
@@ -1651,7 +1670,7 @@ def pretrain_steps(device, pool):
 
 
 def pretrain_cli(device, png_root):
-    """(d): `cli.pretrain` for one short epoch on phase 10's mammogram PNGs with a
+    """(c): `cli.pretrain` for one short epoch on phase 10's mammogram PNGs with a
     generated CSV of *_FINDING labels (the default prompts.json), batch 4; its
     `final.pth` then builds the breastclip dissector."""
     import contextlib
@@ -1730,7 +1749,7 @@ def _pngs_u8(png_root, n):
 
 
 def pretrain_and_v2_card_vs_cpu():
-    """(e): three narrow fp32 pretraining steps (efficientnet-test, 2-layer BERT, both
+    """(d): three narrow fp32 pretraining steps (efficientnet-test, 2-layer BERT, both
     second views, u8 wire; the shift-invariant BatchNorm and key biases frozen) on the
     card and on the CPU: losses within 1e-4 relative, every weight and statistic within
     1e-5 + 1e-3 of its tensor's largest entry but for at most 1e-4 of the entries
@@ -1825,13 +1844,12 @@ def phase_v2_pretrain(device, pool, c_dissect, png_root):
     for d, f in per_forward.items():
         say(f"[kernel 2 V2] one V2-S forward's 28 launches at batch {MAIN_BATCH}, {d}: "
             f"{f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
-    stem = stem_vs_s2d(device, pool)
     pt = pretrain_steps(device, pool)
     cli = pretrain_cli(device, png_root)
     torch.cuda.empty_cache()
     agree = pretrain_and_v2_card_vs_cpu()
     return {"c_dissect_v2": c_v2, "kernel1": kernel1, "v2_shapes": shapes,
-            "v2_forward": per_forward, "stem": stem, "pretrain": pt, "pretrain_cli": cli,
+            "v2_forward": per_forward, "pretrain": pt, "pretrain_cli": cli,
             "card_vs_cpu": agree}
 
 

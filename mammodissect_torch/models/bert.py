@@ -3,9 +3,11 @@
 
 Parameter names are HuggingFace BertModel's (`embeddings.*`, `encoder.layer.i.*`),
 so the reference's text-tower state dict loads with `load_state_dict`. Attention
-is a plain matmul + softmax, as in the JAX module: scores plus an additive
--1e9 mask, softmax in float32. Post-LN, exact GELU, LayerNorm eps 1e-12 computed
-in float32; the dense layers run in `dtype`.
+is a plain matmul + softmax with the JAX module's promotion (`layers.attend`):
+the scores in the dense dtype, divided and masked (additive -1e9) in the layer
+input's float32, the softmax and its product with the values in float32. Post-LN,
+exact GELU, LayerNorm eps 1e-12 computed in float32; the dense layers run in
+`dtype`.
 
 Geometry: 12 layers, hidden 768, 12 heads, intermediate 3072, vocab 28996,
 512 positions. No dropout, as in the JAX module. `param_dtype` (default: `dtype`)
@@ -15,35 +17,31 @@ the backward (`torch.utils.checkpoint`, the counterpart of the JAX module's
 `nn.remat` and of the reference's `gradient_checkpointing`)."""
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mammodissect_torch.models.layers import LayerNorm, Linear
+from mammodissect_torch.models.layers import Embedding, LayerNorm, Linear, attend
 
 
 class BertEmbeddings(nn.Module):
-    """Word + position + token-type embeddings, each looked up and cast to the
-    compute dtype (flax's `nn.Embed(dtype=...)`) before the sum, then LayerNorm."""
-
-    compute_dtype: torch.dtype | None = None
+    """Word + position + token-type embeddings, each looked up in the compute dtype
+    (`layers.Embedding`, flax's `nn.Embed(dtype=...)`) and summed in it, then
+    LayerNorm."""
 
     def __init__(self, vocab_size, hidden_size, max_position_embeddings, type_vocab_size,
                  layer_norm_eps):
         super().__init__()
-        self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
-        self.position_embeddings = nn.Embedding(max_position_embeddings, hidden_size)
-        self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
+        self.word_embeddings = Embedding(vocab_size, hidden_size)
+        self.position_embeddings = Embedding(max_position_embeddings, hidden_size)
+        self.token_type_embeddings = Embedding(type_vocab_size, hidden_size)
         self.LayerNorm = LayerNorm(hidden_size, eps=layer_norm_eps)
 
     def forward(self, input_ids, token_type_ids):
-        dtype = self.compute_dtype or self.word_embeddings.weight.dtype
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
-        x = (self.word_embeddings(input_ids).to(dtype) + self.position_embeddings(pos).to(dtype)
-             + self.token_type_embeddings(token_type_ids).to(dtype))
+        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
+             + self.token_type_embeddings(token_type_ids))
         return self.LayerNorm(x)
 
 
@@ -63,9 +61,7 @@ class BertSelfAttention(nn.Module):
             return a.reshape(b, t, self.num_heads, d_head).transpose(1, 2)
 
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        scores = (q @ k.transpose(-1, -2)) / math.sqrt(d_head) + attn_bias
-        probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-        return (probs @ v).transpose(1, 2).reshape(b, t, d)
+        return attend(q, k, v, x.dtype, attn_bias).transpose(1, 2).reshape(b, t, d)
 
 
 class BertSelfOutput(nn.Module):
@@ -162,7 +158,7 @@ class BertModel(nn.Module):
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
                 m.to(param_dtype)
-            if param_dtype != dtype and isinstance(m, (Linear, BertEmbeddings)):
+            if param_dtype != dtype and isinstance(m, (Linear, Embedding)):
                 m.compute_dtype = dtype
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):

@@ -22,8 +22,9 @@ text embeddings, `labels` = arange(B) and exp(logit_scale), plus
 draws its drop-connect masks, and the MLP projection heads their dropout masks,
 from `generator`. `param_dtype` stores the weights (float32 master weights under
 bf16 compute, as JAX's `dtype=bfloat16` module over flax's float32 parameters);
-`s2d_stem` and `grad_checkpoint` are the config's `image_encoder.s2d_stem` and
-`text_encoder.gradient_checkpointing`.
+`grad_checkpoint` is the config's `text_encoder.gradient_checkpointing`. A config's
+`image_encoder.s2d_stem` runs the plain stem: JAX's space-to-depth stem computes
+the same function (`models/efficientnet.py`).
 
 `BreastClip` wraps the module with its tokenizer and device and provides the
 dissector interface (`embed_images`, `embed_images_u8`, `embed_texts`,
@@ -91,7 +92,7 @@ class BreastClipModule(nn.Module):
 
     def __init__(self, image_variant: str = "efficientnet-b5", in_channels: int = 3,
                  image_pooling: str = "avg", image_tower: str = "cnn",
-                 image_kwargs: Optional[Dict] = None, s2d_stem: bool = False,
+                 image_kwargs: Optional[Dict] = None,
                  text_pooling: str = "eos", proj_dim: int = 512,
                  proj_head: str = "linear", proj_dropout: float = 0.1,
                  temperature: float = 0.07, vocab_size: int = 28996, bert_layers: int = 12,
@@ -106,7 +107,7 @@ class BreastClipModule(nn.Module):
         param_dtype = dtype if param_dtype is None else param_dtype
         image_kwargs = dict(image_kwargs or {})
         if image_tower == "cnn":
-            image_kwargs.update(s2d_stem=s2d_stem, param_dtype=param_dtype)
+            image_kwargs.update(param_dtype=param_dtype)
         self.image_encoder = _image_tower(image_tower, image_variant, in_channels, image_pooling,
                                           image_kwargs, dtype)
         self.text_encoder = BertModel(vocab_size=vocab_size, hidden_size=bert_hidden,
@@ -192,7 +193,7 @@ class BreastClipModule(nn.Module):
 def _image_tower(kind: str, variant: str, in_channels: int, pooling: str, kw: Dict,
                  dtype: torch.dtype) -> nn.Module:
     """The image encoder a config's `image_encoder.model_type` names (`kw`: the
-    Swin/ViT geometry, or the EfficientNet's `s2d_stem` and `param_dtype`)."""
+    Swin/ViT geometry, or the EfficientNet's `param_dtype`)."""
     if kind == "swin":
         return SwinEncoder(variant=variant if variant.startswith("swin") else "swin-tiny",
                            in_channels=in_channels, dtype=dtype, **kw)
@@ -238,7 +239,6 @@ class BreastClip:
             image_pooling=ie.get("pooling", "avg" if name.endswith("-detect") else "gem"),
             image_tower=tower,
             image_kwargs={k: v for k, v in ie.items() if k in geometry},
-            s2d_stem=bool(ie.get("s2d_stem", False)),
             text_pooling=te.get("pooling", "eos"),
             proj_dim=ph.get("proj_dim", 512),
             proj_head=ph.get("name", "linear"),

@@ -21,10 +21,9 @@
   its k x k expand (or single conv), BN, SiLU, 1x1 project and BN run on
   `F.conv2d`, and its parameters take the lukemelas pattern (`_expand_conv`,
   `_bn0`, `_project_conv`, `_bn2`).
-- `s2d_stem` (off by default, as in JAX) computes the 3x3/s2 stem as a 2x2/s1 conv
-  over the space-to-depth input [B, 4C, H/2, W/2] with the kernel scattered from
-  the canonical stem weight (`space_to_depth_stem`); odd dims or a pad other than
-  ((0, 1), (0, 1)) take the plain conv, as in JAX.
+- The stem is the plain 3x3/s2 conv, also for a config that sets
+  `image_encoder.s2d_stem`: JAX's space-to-depth stem (`StemConv(s2d=True)`)
+  computes the same function, and on the H100 it is slower than the plain conv.
 - Training (fine-tuning): every block takes the unfused path on `F.conv2d` with
   autograd, chosen on purpose: the fused front folds the BatchNorms' running
   statistics, and training normalizes by batch statistics (BatchNorm2d's flax
@@ -312,22 +311,6 @@ class FusedMBConvBlock(nn.Module):
         return x
 
 
-def space_to_depth_stem(x: torch.Tensor, conv: Conv2d) -> torch.Tensor:
-    """The 3x3/s2 stem conv with pad ((0, 1), (0, 1)) on an even-sized NCHW x, as a
-    2x2/s1 conv over the space-to-depth input [B, 4C, H/2, W/2] (channel layout
-    (u, v, c), c fastest) with the kernel scattered from the canonical weight:
-    ks[f, (u, v, c), p, q] = w[f, c, 2p + u, 2q + v], zero where 2p + u or 2q + v is 3
-    (`StemConv`, `mammodissect/models/efficientnet.py:250-300`)."""
-    w = conv.weight
-    f, c = w.shape[:2]
-    ks = F.pad(w, (0, 1, 0, 1)).reshape(f, c, 2, 2, 2, 2)  # [F, C, p, u, q, v]
-    ks = ks.permute(0, 3, 5, 1, 2, 4).reshape(f, 4 * c, 2, 2)
-    xs = torch.cat([x[:, :, u::2, v::2] for u in (0, 1) for v in (0, 1)], dim=1)
-    xs = F.pad(xs.contiguous(memory_format=torch.channels_last), (0, 1, 0, 1))
-    dtype = conv.compute_dtype or w.dtype
-    return F.conv2d(xs.to(dtype), ks.to(dtype))
-
-
 @contextlib.contextmanager
 def _running_stats_frozen(module: nn.Module):
     """No BatchNorm2d of `module` updates its running statistics inside: the
@@ -352,13 +335,13 @@ class EfficientNet(nn.Module):
     compute dtype of the convolutions (bfloat16 on the main path), `param_dtype` the
     dtype they are stored in (default: `dtype`); BatchNorm stays float32.
     `bn_momentum` is flax's (0.99), `pad_mode` "static" or "same" (`_paddings`; V2
-    takes "same" whatever is asked), `s2d_stem` the space-to-depth stem, `remat`
-    recomputes each block in the backward of a training forward."""
+    takes "same" whatever is asked), `remat` recomputes each block in the backward
+    of a training forward."""
 
     def __init__(self, variant: str = "efficientnet-b5", in_channels: int = 1,
                  drop_connect_rate: float = 0.2, dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None, bn_momentum: float = 0.99,
-                 pad_mode: str = "static", s2d_stem: bool = False, remat: bool = False):
+                 pad_mode: str = "static", remat: bool = False):
         super().__init__()
         if pad_mode not in ("static", "same"):
             raise ValueError(f"pad_mode must be 'static' or 'same', got {pad_mode!r}")
@@ -367,7 +350,6 @@ class EfficientNet(nn.Module):
         self.drop_connect_rate = drop_connect_rate
         self.is_v2 = variant.startswith("efficientnetv2")
         self.pad_mode = "same" if self.is_v2 else pad_mode  # V2 is always true SAME
-        self.s2d_stem = s2d_stem
         self.remat = remat
         if self.is_v2:
             self.block_args = v2_block_args()
@@ -429,14 +411,6 @@ class EfficientNet(nn.Module):
                 size = (-(-size[0] // ba.stride), -(-size[1] // ba.stride))
         return stem_pad, tuple(pads)
 
-    def _stem(self, x: torch.Tensor, pad: Pad2d) -> torch.Tensor:
-        """The stem conv: space-to-depth where `s2d_stem` is on and applies (even
-        dims, pad ((0, 1), (0, 1))), else the plain 3x3/s2 conv."""
-        if self.s2d_stem and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0 \
-                and pad == ((0, 1), (0, 1)):
-            return space_to_depth_stem(x, self._conv_stem)
-        return self._conv_stem(_pad(x, pad))
-
     def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg",
                 generator: Optional[torch.Generator] = None):
         """`generator` draws the drop-connect masks of a training forward (on x's
@@ -448,7 +422,7 @@ class EfficientNet(nn.Module):
         if x.shape[1] == 1 and self.in_channels > 1:
             x = x.expand(-1, self.in_channels, -1, -1)
         x = x.contiguous(memory_format=torch.channels_last)
-        x = F.silu(self._bn0(self._stem(x, stem_pad)))
+        x = F.silu(self._bn0(self._conv_stem(_pad(x, stem_pad))))
         captured: Dict[str, torch.Tensor] = {}
         n_blocks = len(self._blocks)
         remat = self.remat and torch.is_grad_enabled()

@@ -118,6 +118,17 @@ class Linear(nn.Linear):
         return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
+class Embedding(nn.Embedding):
+    """nn.Embedding whose lookups come out in `compute_dtype` (None: its weight's
+    dtype), as flax's `nn.Embed(dtype=...)`: the rows are cast after the lookup,
+    the same values as a lookup in the cast table."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype or self.weight.dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW computed in float32 and returned in the input dtype, with
     float32 parameters and statistics. Momentum 0.01 is flax's 0.99; eps is passed by

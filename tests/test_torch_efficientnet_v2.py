@@ -28,7 +28,6 @@ from mammodissect_torch.models.efficientnet import (
     EfficientNet,
     FusedMBConvBlock,
     MBConvBlock,
-    space_to_depth_stem,
     v2_block_args,
 )
 
@@ -167,39 +166,43 @@ def test_v2_drop_connect_masks_with_and_without_remat():
 
 @pytest.mark.parametrize("hw", [(64, 48), (63, 47)])
 def test_s2d_stem_matches_the_plain_stem_and_jax(hw):
-    """The space-to-depth stem against the plain 3x3/s2 conv and against JAX's
-    StemConv(s2d=True), within 1e-5, on the same canonical weight; odd dims fall back
-    to the plain conv in both (as tests/test_efficientnet.py:101 holds JAX's)."""
+    """The port's stem (the plain 3x3/s2 conv, at the pad its tower computes) against
+    JAX's StemConv with and without space-to-depth, within 1e-5, on the same
+    canonical weight: even dims take JAX's s2d path, odd dims its plain fallback
+    (as tests/test_efficientnet.py:101 holds JAX's). A config's
+    `image_encoder.s2d_stem` builds the same tower as without it."""
+    from mammodissect_torch.models.breastclip import BreastClip, default_model_config
+    from mammodissect_torch.models.efficientnet import _pad
+
     h, w = hw
     rng = np.random.default_rng(4)
     x = rng.normal(size=(2, h, w, 3)).astype(np.float32)
     kernel = (rng.normal(size=(3, 3, 3, 32)) / np.sqrt(27)).astype(np.float32)
     pad = tuple(((0, 1) if d % 2 == 0 else (1, 1)) for d in hw)  # TF-SAME, k3/s2
-    jax_out = JaxStemConv(32, padding=pad, s2d=True).apply({"params": {"kernel": kernel}},
-                                                          jnp.asarray(x))
-    plain = EfficientNet("efficientnet-b0", in_channels=3, pad_mode="same")
-    fast = EfficientNet("efficientnet-b0", in_channels=3, pad_mode="same", s2d_stem=True)
-    for m in (plain, fast):
-        with torch.no_grad():
-            m._conv_stem.weight.copy_(torch.from_numpy(kernel).permute(3, 2, 0, 1))
-    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    jax_outs = [np.asarray(JaxStemConv(32, padding=pad, s2d=s2d).apply(
+        {"params": {"kernel": kernel}}, jnp.asarray(x))) for s2d in (True, False)]
+    tower = EfficientNet("efficientnet-b0", in_channels=3, pad_mode="same")
+    stem_pad, _ = tower._paddings(hw)
+    assert stem_pad == pad
     with torch.no_grad():
-        want = plain._stem(xt, pad)
-        got = fast._stem(xt, pad)
-        towers = [m.eval()(torch.from_numpy(x))[0] for m in (plain, fast)]
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(jax_out),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(towers[1].numpy(), towers[0].numpy(), rtol=1e-5, atol=1e-5)
-    if hw[0] % 2 == 0:
-        with torch.no_grad():
-            direct = space_to_depth_stem(xt, fast._conv_stem)
-            other_pad = fast._stem(xt, ((1, 1), (1, 1)))
-            plain_other = plain._stem(xt, ((1, 1), (1, 1)))
-        torch.testing.assert_close(direct, got)
-        # a pad other than ((0, 1), (0, 1)) takes the plain conv, as in JAX
-        torch.testing.assert_close(other_pad, plain_other, rtol=0, atol=0)
-    assert not EfficientNet("efficientnet-b5").s2d_stem  # off by default
+        tower._conv_stem.weight.copy_(torch.from_numpy(kernel).permute(3, 2, 0, 1))
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+        got = tower._conv_stem(_pad(xt, stem_pad)).permute(0, 2, 3, 1).numpy()
+    for want in jax_outs:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+    models = []
+    for s2d in (False, True):
+        cfg = default_model_config()
+        cfg["image_encoder"].update(variant="efficientnet-test", s2d_stem=s2d)
+        models.append(BreastClip.create(model_config=cfg, bert_layers=1, vocab_size=64,
+                                        device="cpu").module.image_encoder)
+    sds = [m.state_dict() for m in models]
+    assert sds[0].keys() == sds[1].keys()
+    assert all(torch.equal(sds[0][k], sds[1][k]) for k in sds[0])
+    with torch.no_grad():
+        outs = [m(torch.from_numpy(x))[0] for m in models]
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("return_features", [False, True])
@@ -250,16 +253,37 @@ def _decided_layers(tmp_path, layers, top_k):
     return out
 
 
+# the layers whose image rankings a float32 rounding can swap with these weights and
+# this probe (`_decided_layers`): deep blocks of a random tower vary little between
+# noise images, so one or a few of their units rank two images within 4x the
+# port-vs-JAX difference of their activations
+UNDECIDED_V2_LAYERS = {10, 13, 19, 26, 29, 32, 33, 34, 35, 37, 38, 39}
+
+
 def test_v2_c_dissect_csv_matches_jax(v2_classifier, tmp_path):
     """The staged C-dissect of a V2-S classifier (all 40 blocks, 6544 units) on 24
     synthetic 64x64 images with the random dissector, through both packages'
-    `run_dissection` on the same weights: every layer's activations within 1e-4 of
-    the largest; in each layer whose image rankings no rounding can swap
-    (`_decided_layers`; 28 of the 40 here, at least half required), the top images
-    equal, the similarities within 1e-4 of the largest and the top-3 concepts equal
-    wherever JAX's similarities order them by more than that tolerance. Deep blocks
-    of a random tower vary little between images, so some units' rankings tie
-    within float32 noise."""
+    `run_dissection` on the same weights.
+
+    - Harvest and scoring end to end: every layer's activations within 1e-4 of the
+      largest entry; in each layer whose image rankings no rounding can swap
+      (`_decided_layers`: all but the 12 pinned in `UNDECIDED_V2_LAYERS`), the
+      rows equal JAX's: descriptions and top images identical, similarities within
+      1e-4 of the largest. In a pinned layer a unit ranks two images within float32
+      noise, and soft-WPMI's rank weights and per-layer log p(d) then move every
+      similarity of the layer.
+    - Scoring and results on JAX's activation and embedding caches: the port's
+      `run_dissection` reads them (harvest and embeddings skipped) and writes JAX's
+      CSV for all 40 layers: top images identical, similarities within 1e-4 of the
+      largest, descriptions identical.
+
+    A row's descriptions may differ only where two concepts tie within the scoring's
+    float32 noise: at the first concept that differs, the two similarities within
+    1e-6 of the largest (the port-vs-JAX similarity differences reach 4.8e-6 of it
+    on JAX's caches). One such row (blocks.32, third concept, 1e-6 apart) is
+    allowed."""
+    import shutil
+
     from mammodissect.dissect.engine import DissectConfig as JaxDissectConfig
     from mammodissect.dissect.engine import run_dissection as jax_run_dissection
     from mammodissect.dissect.targets import EfficientNetTarget as JaxTarget
@@ -278,28 +302,37 @@ def test_v2_c_dissect_csv_matches_jax(v2_classifier, tmp_path):
     _, jpath = jax_run_dissection(
         JaxDissectConfig(activation_dir=str(tmp_path / "ja"), result_dir=str(tmp_path / "jr"),
                          **kw), target=JaxTarget(module, variables), log=lambda *_: None)
+    shutil.copytree(tmp_path / "ja", tmp_path / "jax_caches")
     target = get_target_model("breastclip_classifier", arch=V2_ARCHS[0], device="cpu")
     target.model.load_state_dict(classifier_from_jax(jax.tree.map(np.array, variables)))
-    logs = []
-    df, path = run_dissection(
-        DissectConfig(device="cpu", activation_dir=str(tmp_path / "pa"),
-                      result_dir=str(tmp_path / "pr"), **kw), target=target, log=logs.append)
-    assert any(l.startswith("[harvest] 24 images x 40 layers") for l in logs), logs
-    (got, sim), (want, jsim) = _read(path), _read(jpath)
-    assert len(got) == 6544 and list(got["layer"]) == list(want["layer"])
-    assert list(got["unit"]) == list(want["unit"])
-    assert np.isfinite(sim).all()
-    decided = _decided_layers(tmp_path, layers, top_k=8)
-    assert sum(decided.values()) >= 20, decided
-    decided = np.array([decided[layer] for layer in got["layer"]])
+    runs = {}
+    for acts in ("pa", "jax_caches"):
+        logs = []
+        _, path = run_dissection(
+            DissectConfig(device="cpu", activation_dir=str(tmp_path / acts),
+                          result_dir=str(tmp_path / f"r_{acts}"), **kw),
+            target=target, log=logs.append)
+        runs[acts] = (_read(path), logs)
+    want, jsim = _read(jpath)
     tol = 1e-4 * np.abs(jsim).max()
-    np.testing.assert_allclose(sim[decided], jsim[decided], rtol=0, atol=tol)
-    assert [a for a, d in zip(got["images"], decided) if d] == \
-        [b for b, d in zip(want["images"], decided) if d]
-    ordered = decided & (np.diff(jsim, axis=1) < -2 * tol).all(axis=1)
-    assert ordered.sum() >= 0.9 * decided.sum()
-    assert [a for a, d in zip(got["description"], ordered) if d] == \
-        [b for b, d in zip(want["description"], ordered) if d]
+    assert any(l.startswith("[harvest] 24 images x 40 layers") for l in runs["pa"][1])
+    assert "[harvest] all target activations cached, skipping" in runs["jax_caches"][1]
+    decided = _decided_layers(tmp_path, layers, top_k=8)
+    assert {int(k.split(".")[1]) for k, d in decided.items() if not d} == UNDECIDED_V2_LAYERS
+    for acts, rows in (("pa", np.array([decided[layer] for layer in want["layer"]])),
+                       ("jax_caches", np.ones(len(want), bool))):
+        (got, sim), _ = runs[acts]
+        assert len(got) == 6544 and list(got["layer"]) == list(want["layer"])
+        assert list(got["unit"]) == list(want["unit"])
+        assert np.isfinite(sim).all()
+        np.testing.assert_allclose(sim[rows], jsim[rows], rtol=0, atol=tol)
+        assert list(got["images"][rows]) == list(want["images"][rows]), acts
+        ties = [i for i in np.flatnonzero(rows) if got["description"][i] != want["description"][i]]
+        assert len(ties) <= 1, (acts, ties)
+        for i in ties:
+            a, b = ast.literal_eval(got["description"][i]), ast.literal_eval(want["description"][i])
+            k = next(j for j in range(len(b)) if a[j] != b[j])
+            assert abs(sim[i, k] - jsim[i, k]) <= 1e-6 * np.abs(jsim).max(), (acts, i)
 
 
 def test_finetune_cli_trains_a_v2_classifier(tmp_path):

@@ -174,6 +174,158 @@ def test_train_step_matches_jax(views, smoothing):
     assert noise <= 1e-4 * sum(v.numel() for v in want.values()), noise
 
 
+def _module_pairs(variables):
+    """{port module name: flax module path} for every module that holds parameters:
+    each flax module's variables are filled with its index and carried across by
+    `breastclip_from_jax`, which moves every value of a module into one port module."""
+    paths = []
+
+    def tag(path, leaf):
+        module = tuple(str(p.key) for p in path[1:-1])  # drop the collection and the leaf
+        if module not in paths:
+            paths.append(module)
+        return np.full(leaf.shape, paths.index(module), np.float32)
+
+    tagged = breastclip_from_jax(jax.tree_util.tree_map_with_path(tag, jax.tree.map(np.array, variables)))
+    pairs = {}
+    for key, value in tagged.items():
+        (index,) = set(np.unique(value.numpy()).astype(int).tolist())
+        pairs.setdefault(key.rsplit(".", 1)[0], set()).add(paths[index])
+    assert all(len(v) == 1 for v in pairs.values())
+    return {k: v.pop() for k, v in pairs.items() if k != "logit_scale"}
+
+
+def _flax_outputs(intermediates):
+    """{flax module path: its first output} from `capture_intermediates`."""
+    out = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if key == "__call__":
+                out[path] = jax.tree_util.tree_leaves(value[0])[0]
+            else:
+                walk(value, path + (key,))
+
+    walk(intermediates, ())
+    return out
+
+
+def _sgd_step(model_or_module, host, start, variables=None):
+    """One step with SGD at lr 0.01 (so that each weight moves by its gradient):
+    (loss, {name: gradient}, {name: BatchNorm statistic}) in the port's names."""
+    lr = 0.01
+    if variables is not None:
+        tx = optax.sgd(lr)
+        step = jax.jit(jax_make_step(model_or_module, tx, label_smoothing=0.1, input_wire="u8",
+                                     norm_mean=MEAN, norm_std=STD))
+        params, stats, _, loss = step(variables["params"], variables["batch_stats"],
+                                      tx.init(variables["params"]),
+                                      jax.tree.map(jnp.asarray, host), jax.random.PRNGKey(3))
+        state = breastclip_from_jax(jax.tree.map(np.array, {"params": params, "batch_stats": stats}))
+    else:
+        optimizer = torch.optim.SGD(model_or_module.parameters(), lr=lr)
+        step = make_clip_train_step(model_or_module, optimizer, label_smoothing=0.1,
+                                    input_wire="u8", norm_mean=MEAN, norm_std=STD,
+                                    generator=torch.Generator().manual_seed(3))
+        loss = step(batch_to_device(host, torch.device("cpu")))
+        state = model_or_module.state_dict()
+    running = {k for k in start if k.endswith(("running_mean", "running_var"))}
+    grads = {k: (start[k] - state[k]) / lr for k in start
+             if k not in running and not _shift_invariant(k)}
+    return float(loss), grads, {k: state[k] for k in running}, state
+
+
+def _rel_err(got, want):
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(np.asarray(want)).max())
+
+
+def _distance(a, b):
+    """The relative L2 distance of two {name: tensor} dicts taken as one vector."""
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+    return (num / sum(float((b[k] ** 2).sum()) for k in b)) ** 0.5
+
+
+def test_bf16_train_step_matches_jax():
+    """The mixed-precision step that pretraining runs (bf16 compute over float32
+    master weights) against JAX's step with the module at dtype=bfloat16 over
+    flax's float32 parameters, both views, label smoothing 0.1.
+
+    - Casts: in the training forward every module that holds parameters (80: convs,
+      BatchNorms, dense layers, LayerNorms, embeddings, projections) returns the
+      dtype its flax counterpart returns (`capture_intermediates`), and after the
+      step every weight and BatchNorm statistic is float32.
+    - The first operations, on identical inputs, agree to float32 rounding: the
+      embedding lookups exactly, the embeddings' bf16 sum through its LayerNorm and
+      the bf16 stem conv within 1e-6 of the largest entry (summing the embeddings in
+      float32 before the cast moves the LayerNorm's output by ~4e-3).
+    - The step (SGD, so each weight's change is its gradient): XLA and PyTorch round
+      bf16 elementwise ops differently (SiLU, GELU, a dense layer's bias add: one
+      rounding or two), and the narrow tower's batch statistics over 6 images
+      amplify it, so the two bf16 steps are two independent bf16 roundings of the
+      float32 step. Measured on the CPU, as distances relative to JAX's bf16 step
+      from the float32 step: the port's bf16 step from the float32 step 0.96
+      (gradients) and 0.98 (BatchNorm statistics), the two bf16 steps from each
+      other 1.34 and 1.18. Held: the first within [0.5, 2] (an image tower left in
+      float32 reads 0.05), the second at most 2, the loss within 2e-2 of JAX's
+      (1.1e-2 measured; bf16's epsilon is 7.8e-3)."""
+    jtok, _ = _toks()
+    host = _host_batch(True)
+    floats = {k: (v.astype(np.float32) / 255 if k in ("images", "image_views") else v)
+              for k, v in host.items()}
+    jax_module = {d: JaxBreastClipModule(vocab_size=len(jtok.vocab), dtype=d, **NARROW)
+                  for d in (jnp.float32, jnp.bfloat16)}
+    variables = _jax_variables(jax_module[jnp.float32], jax.tree.map(jnp.asarray, floats), seed=2)
+    start = breastclip_from_jax(jax.tree.map(np.array, variables))
+
+    def port(dtype):
+        model = BreastClipModule(vocab_size=len(jtok.vocab), dtype=dtype,
+                                 param_dtype=torch.float32, **NARROW)
+        model.load_state_dict(start)
+        return model
+
+    # the casts, in one training forward
+    _, flax_state = jax_module[jnp.bfloat16].apply(
+        variables, jax.tree.map(jnp.asarray, floats), train=True,
+        rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats", "intermediates"],
+        capture_intermediates=True)
+    flax_out = _flax_outputs(flax_state["intermediates"])
+    model = port(torch.bfloat16)
+    port_out = {}
+    for name, m in model.named_modules():
+        if name and list(m.parameters(recurse=False)):
+            m.register_forward_hook(
+                lambda mod, inp, out, name=name: port_out.setdefault(name, out.detach()))
+    batch = {k: torch.from_numpy(v) if k in ("images", "image_views") else torch.from_numpy(v).long()
+             for k, v in floats.items()}
+    model.train()(batch, generator=torch.Generator().manual_seed(0))
+    pairs = _module_pairs(variables)
+    assert len(pairs) == 80
+    dtypes = {name: (str(port_out[name].dtype).split(".")[-1], str(flax_out[path].dtype))
+              for name, path in pairs.items()}
+    assert all(p == f for p, f in dtypes.values()), {k: v for k, v in dtypes.items() if v[0] != v[1]}
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        got = port_out[f"text_encoder.embeddings.{name}"].float().numpy()
+        np.testing.assert_array_equal(got, np.asarray(
+            flax_out[("text_encoder", name)].astype(jnp.float32)).reshape(got.shape))
+    for name, path in (("text_encoder.embeddings.LayerNorm", ("text_encoder", "embeddings_norm")),
+                       ("image_encoder._conv_stem", ("image_encoder", "backbone", "stem_conv"))):
+        got = port_out[name].float()
+        got = got.permute(0, 2, 3, 1) if got.ndim == 4 else got
+        assert _rel_err(got.numpy(), flax_out[path].astype(jnp.float32)) <= 1e-6, name
+
+    # the step
+    jax32 = _sgd_step(jax_module[jnp.float32], host, start, variables)
+    jax16 = _sgd_step(jax_module[jnp.bfloat16], host, start, variables)
+    model = port(torch.bfloat16)
+    port16 = _sgd_step(model, host, start)
+    assert {v.dtype for v in port16[3].values() if v.is_floating_point()} == {torch.float32}
+    for i, what in ((1, "gradients"), (2, "BatchNorm statistics")):
+        noise = _distance(jax16[i], jax32[i])
+        assert 0.5 <= _distance(port16[i], jax32[i]) / noise <= 2, what
+        assert _distance(port16[i], jax16[i]) / noise <= 2, what
+    assert abs(port16[0] - jax16[0]) <= 2e-2 * abs(jax16[0]), (port16[0], jax16[0])
+
+
 def test_bert_checkpoint_gives_the_gradients_of_no_checkpoint():
     """BERT's gradient checkpoint (`text_encoder.gradient_checkpointing`): the same
     loss and gradients of every parameter as without it, in one training forward
@@ -202,7 +354,7 @@ def test_bert_checkpoint_gives_the_gradients_of_no_checkpoint():
 def test_forward_outputs_and_config_keys():
     """The training forward's outputs (labels arange(B), exp(logit_scale), the
     second views only when both are in the batch); `BreastClip.create` reads
-    `image_encoder.s2d_stem` and `text_encoder.gradient_checkpointing`; a
+    `text_encoder.gradient_checkpointing` and accepts `image_encoder.s2d_stem`; a
     `param_dtype` of float32 under bf16 compute keeps float32 weights; the MLP
     head's dropout comes from the generator (the same seed, the same masks)."""
     from mammodissect_torch.models.breastclip import BreastClip, default_model_config
@@ -229,7 +381,7 @@ def test_forward_outputs_and_config_keys():
     clip = BreastClip.create(model_config=cfg, bert_layers=1, vocab_size=len(tok.vocab),
                              device="cpu", dtype=torch.bfloat16, param_dtype=torch.float32)
     m = clip.module
-    assert m.image_encoder.s2d_stem and m.text_encoder.encoder.grad_checkpoint
+    assert m.text_encoder.encoder.grad_checkpoint
     assert {p.dtype for p in m.parameters()} == {torch.float32}
     m.train()
     runs = [m(batch, generator=torch.Generator().manual_seed(s)) for s in (4, 4, 5)]
