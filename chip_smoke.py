@@ -92,6 +92,25 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      `cli.pretrain` for one epoch on phase 10's PNGs with a generated CSV of *_FINDING
      labels; its final.pth builds the breastclip dissector with equal weights; (d)
      three narrow pretraining steps and a V2-S tower on the card and on the CPU.
+ 14. the data- and tensor-parallel paths, each rank a process of its own (this script
+     with `--rank` arguments) in one process group, under one shared timeout: first the
+     single-process references (the resident M-dissect on 250 and on 64 images, the
+     first full-width pretraining step); then (a) two gloo ranks sharing the card (the
+     card holds one NCCL rank at most): the resident M-dissect at full width on 250
+     images (each rank its HostShardedProbe shard of 125, 32 kernel-2 launches a batch
+     and one kernel-1 launch a rank, counted in each rank; the gathered rows' CSV
+     against the single process: >= 0.99 top-1 agreement, the share of identical top
+     images reported), DP fine-tuning of the B5 classifier at full width (global batch
+     8, 4 a rank, bf16, three steps, the ranks' weights equal after, then an eval batch
+     through kernel 2 and gather_predictions), and a DP + TP (1, 2) pretraining step at
+     full width (B5 + 12-layer BERT with the 28996-row vocab split over the ranks,
+     global batch 4 without the image view) whose first loss is within 2e-2 of the
+     single process's; (c) on the same ranks, narrow DP fine-tune steps and a narrow TP
+     pretraining step on the card and on the CPU (the tolerances of 10d and 13d); (b)
+     one NCCL rank (world size 1) through the distributed path on 64 images writes the
+     single process's CSV exactly. Wall of each part, img/s of both runs, ms a step and
+     peak memory a rank. Two ranks sharing one card measure gloo and the sharing, not
+     scaling.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
@@ -100,6 +119,7 @@ line; the last line is {"ok": true, "device": {...}}. Imports torch and the port
 only."""
 from __future__ import annotations
 
+import ast
 import copy
 import dataclasses
 import json
@@ -1853,12 +1873,462 @@ def phase_v2_pretrain(device, pool, c_dissect, png_root):
             "card_vs_cpu": agree}
 
 
+# ------------------------------------------------------------------ phase 14
+PAR_N = 250            # images of the two-rank resident M-dissect (odd: wrap padding, trim)
+PAR_NCCL_N = 64        # images of the one-rank NCCL run
+PAR_FT_ROWS = 4        # fine-tune rows a rank (global batch 8)
+PAR_PT_BATCH = 4       # pretraining's global batch (model_parallel 2: every rank all 4)
+PAR_BF16_LOSS_TOL = 2e-2  # ~5 units of bf16 rounding (2**-8) on the first step's loss
+PAR_TIMEOUT_S = 420    # shared by the spawned ranks of one run
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world, backend, work, task):
+    """Run `world` copies of this script as the ranks of one process group (each its
+    own process and CUDA context, `--rank` arguments, the topology in the environment
+    torchrun would set), within one shared timeout; a rank that fails or hangs fails
+    the phase (the others are killed). Returns each rank's results."""
+    import torch
+
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(work, f"{task}_rank{r}.log"), "w")
+        logs.append(log)
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--backend", backend,
+             "--work", work, "--task", task],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(work, f"{task}_rank{r}.log")) as f:
+            text = f.read()
+        check(p.returncode == 0, f"{task} rank {r} of {world} failed (rc {p.returncode}):\n"
+              f"{text[-6000:]}")
+    return [torch.load(os.path.join(work, f"{task}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def par_dissect(device, pool, n, work, dissector=None):
+    """The resident M-dissect at full width on `n` probe images (run_dissection), the
+    kernels' counts zeroed just before and read just after; under a process group each
+    rank harvests its shard. Returns the frame, the CSV path and the counts."""
+    import torch
+    import torch.distributed as dist
+
+    from mammodissect_torch.dissect.engine import run_dissection
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+
+    if dissector is None:
+        dissector, _ = flagship_dissector(device)
+    cfg = resident_cfg(work, device)
+    torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    fused_expand_dw.launches = 0
+    soft_wpmi_gather_logsum.launches = 0
+    t0 = time.perf_counter()
+    df, csv_path = run_dissection(cfg, probe=CyclicProbe(pool, n), dissector=dissector,
+                                  log=lambda *_: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches}
+    return {"df": df.to_dict("list"), "csv_path": csv_path, "wall_s": wall, "launches": launches,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _pt_single_batch(pool):
+    """The global pretraining batch of phase 14 (images and two text views' first, no
+    image views: two ranks of the whole batch share one card's memory)."""
+    batches, tok = _pt_batches(pool, 3, PAR_PT_BATCH, seed=21)
+    keep = ("images", "input_ids", "attention_mask")
+    return [{k: b[k] for k in keep} for b in batches], tok
+
+
+def _pt_model(device, tok):
+    """B5 + 12-layer BERT with the 28996-row word embedding, bf16 over fp32 weights,
+    weights from the pretraining config's seed."""
+    import torch
+
+    from mammodissect_torch.device import resolve_dtype
+    from mammodissect_torch.models.breastclip import BreastClip, default_model_config
+    from mammodissect_torch.train.pretrain import PretrainConfig
+
+    cfg = PretrainConfig(device=device.type)
+    model_config = default_model_config()
+    model_config["image_encoder"]["variant"] = cfg.image_variant
+    return BreastClip.create(model_config=model_config, tokenizer=tok, seed=cfg.seed,
+                             bert_layers=cfg.bert_layers, vocab_size=BERT_VOCAB,
+                             dtype=resolve_dtype(cfg.dtype), param_dtype=torch.float32,
+                             device=device).module
+
+
+def par_pretrain(device, pool, mesh=None):
+    """Three contrastive steps (the first's loss compared; steps 2-3 timed) of the
+    full-width model, tensor-parallel when `mesh` is given (BERT and the heads split
+    over its model axis, `apply_tensor_parallel`)."""
+    import torch
+
+    from mammodissect_torch.parallel.sharding import apply_tensor_parallel, full_state_dict
+    from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
+    from mammodissect_torch.train.trainer import make_optimizer
+
+    batches, tok = _pt_single_batch(pool)
+    model = _pt_model(device, tok)
+    plan = apply_tensor_parallel(model, mesh) if mesh is not None else {}
+    optimizer, scheduler = make_optimizer(model, 5e-5, 1e-4, 100, 1000)
+    step = make_clip_train_step(model, optimizer, scheduler, input_wire="u8",
+                                norm_mean=0.3089279, norm_std=0.25053555,
+                                generator=torch.Generator(device=device).manual_seed(22),
+                                mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(batch_to_device(batches[0], device)))]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [step(batch_to_device(b, device)) for b in batches[1:]]
+    end.record()
+    torch.cuda.synchronize()
+    row = {"losses": [float(l) for l in losses],
+           "ms_per_step": start.elapsed_time(end) / (len(batches) - 1),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "split_params": len(plan)}
+    if mesh is not None:
+        whole = full_state_dict(model)
+        row["whole_word_embedding"] = tuple(
+            whole["text_encoder.embeddings.word_embeddings.weight"].shape)
+        row["local_word_embedding"] = tuple(
+            model.text_encoder.embeddings.word_embeddings.weight.shape)
+    optimizer.zero_grad(set_to_none=True)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def par_finetune(device, pool, rank, world):
+    """Three data-parallel steps of the B5 classifier at full width (bf16, u8 wire):
+    this rank's PAR_FT_ROWS of each global batch of 8; then an eval batch through
+    kernel 2 and gather_predictions. Steps 2-3 timed."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.parallel.collectives import all_gather
+    from mammodissect_torch.parallel.multihost import gather_predictions
+    from mammodissect_torch.train.experiments import FinetuneConfig
+
+    cfg = FinetuneConfig(seed=3, device=device.type)  # B5, bf16, u8
+    trainer = _ft_trainer(cfg, device)
+    batches = _ft_batches(pool, 3, seed=4)
+    sl = slice(rank * PAR_FT_ROWS, (rank + 1) * PAR_FT_ROWS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_expand_dw.launches = 0
+    losses = [trainer.train_batch(batches[0][0][sl], batches[0][1][sl])]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [trainer.train_batch(u8[sl], y[sl]) for u8, y in batches[1:]]
+    end.record()
+    torch.cuda.synchronize()
+    train_launches = fused_expand_dw.launches
+    peak = torch.cuda.max_memory_allocated()
+    u8, y = _ft_batches(pool, 1, seed=5)[0]
+    fused_expand_dw.launches = 0
+    _, local = trainer.eval_batch(u8[sl], y[sl])
+    eval_launches = fused_expand_dw.launches
+    preds = gather_predictions(local, FT_BATCH)
+    stats = torch.stack([v.float().sum() for k, v in trainer.model.state_dict().items()
+                         if k.endswith(("running_mean", "running_var", "weight"))])
+    same = all_gather(stats[None]).cpu()
+    check(bool((same == same[0]).all()), "DP fine-tune: the ranks' weights or statistics differ")
+    row = {"losses": losses, "ms_per_step": start.elapsed_time(end) / 2,
+           "max_memory_allocated_bytes": peak, "train_launches": train_launches,
+           "eval_launches": eval_launches, "predictions": preds.tolist()}
+    del trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def par_card_vs_cpu(rank, world):
+    """(c): narrow data- and tensor-parallel steps of this rank group on the card and
+    on the CPU (gloo takes both): three fp32 DP fine-tune steps of t_test_ft at 64x48
+    (this rank's half of each batch of 8) and one TP (1, 2) pretraining step of a
+    narrow BreastClip; the tolerances of phases 10d and 13d."""
+    import torch
+
+    from mammodissect_torch.models.breastclip import BreastClipModule
+    from mammodissect_torch.models.layers import init_weights
+    from mammodissect_torch.parallel.mesh import make_mesh
+    from mammodissect_torch.parallel.sharding import apply_tensor_parallel, full_state_dict
+    from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
+    from mammodissect_torch.train.experiments import FinetuneConfig
+    from mammodissect_torch.train.trainer import make_optimizer
+
+    cfg = FinetuneConfig(arch="t_test_ft", img_size=(64, 48), dtype="float32", pad_mode="same",
+                         bn_momentum=0.9, lr=1e-3, seed=8)
+    rng = np.random.default_rng(9)
+    batches = [(rng.integers(0, 256, size=(FT_BATCH, 64, 48, 1), dtype=np.uint8),
+                (rng.random(FT_BATCH) < 0.5).astype(np.float32), n) for n in (8, 8, 5)]
+    half = FT_BATCH // world
+    sl = slice(rank * half, (rank + 1) * half)
+    ft = {}
+    for dev in ("cpu", "cuda"):
+        tr = _ft_trainer(cfg, torch.device(dev), warmup_steps=1, total_steps=10,
+                         shift_invariant_frozen=True)
+        losses = [tr.train_batch(u8[sl], y[sl], min(max(n - rank * half, 0), half))
+                  for u8, y, n in batches]
+        ft[dev] = ({k: v.cpu().clone() for k, v in tr.model.state_dict().items()}, losses)
+    (cpu, cpu_l), (gpu, gpu_l) = ft["cpu"], ft["cuda"]
+    ft_loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_l, cpu_l))
+    ratio = {k: float((gpu[k] - v).abs().max() / (1e-5 + 1e-3 * v.abs().max()))
+             for k, v in cpu.items() if v.is_floating_point()}
+    ft_worst = max(ratio, key=ratio.get)
+    check(ft_loss_err <= 1e-4, f"DP fine-tune card vs CPU: losses {gpu_l} vs {cpu_l}")
+    check(ratio[ft_worst] <= 1.0,
+          f"DP fine-tune card vs CPU: {ft_worst} is {ratio[ft_worst]:.3g} x its tolerance")
+
+    narrow = dict(image_variant="efficientnet-test", bert_layers=2, bert_hidden=64,
+                  bert_heads=2, bert_intermediate=128, proj_dim=32, vocab_size=64)
+    base = BreastClipModule(**narrow)
+    init_weights(base, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.integers(0, 256, (6, 64, 48, 1), dtype=np.uint8),
+             "image_views": rng.integers(0, 256, (6, 64, 48, 1), dtype=np.uint8),
+             "input_ids": rng.integers(5, 64, (6, 12)), "attention_mask": np.ones((6, 12)),
+             "input_ids2": rng.integers(5, 64, (6, 12)), "attention_mask2": np.ones((6, 12))}
+    mesh = make_mesh(model_parallel=world)
+    tp = {}
+    for dev in ("cpu", "cuda"):
+        model = BreastClipModule(**narrow)
+        model.load_state_dict(base.state_dict())
+        model.to(dev)
+        apply_tensor_parallel(model, mesh)
+        labels = {k: "frozen" if k.endswith(("_bn2.bias", "attention.self.key.bias")) else "train"
+                  for k, _ in model.named_parameters()}
+        optimizer, scheduler = make_optimizer(model, 1e-3, 1e-4, 1, 10, param_labels=labels)
+        step = make_clip_train_step(model, optimizer, scheduler, input_wire="u8",
+                                    norm_mean=0.3, norm_std=0.25, mesh=mesh)
+        loss = float(step(batch_to_device(batch, torch.device(dev))))
+        tp[dev] = ({k: v.cpu() for k, v in full_state_dict(model).items()}, loss)
+    (cpu, cpu_loss), (gpu, gpu_loss) = tp["cpu"], tp["cuda"]
+    tp_loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    outside = total = 0
+    tp_worst = 0.0
+    for k, v in cpu.items():
+        if v.is_floating_point():
+            err = (gpu[k] - v).abs()
+            outside += int((err > 1e-5 + 1e-3 * float(v.abs().max())).sum())
+            total += v.numel()
+            tp_worst = max(tp_worst, float(err.max()))
+    check(tp_loss_err <= 1e-4, f"TP pretrain card vs CPU: loss {gpu_loss} vs {cpu_loss}")
+    check(outside <= 1e-4 * total and tp_worst <= 6e-3,
+          f"TP pretrain card vs CPU: {outside} of {total} entries outside the tolerance, "
+          f"worst {tp_worst}")
+    return {"ft_loss_max_rel_err": ft_loss_err, "ft_worst_share_of_tol": ratio[ft_worst],
+            "ft_worst": ft_worst, "tp_loss_rel_err": tp_loss_err, "tp_entries_outside": outside,
+            "tp_entries": total, "tp_worst_abs_err": tp_worst}
+
+
+def rank_main(argv):
+    """One spawned rank of phase 14 (`--rank r --backend b --work dir --task gloo|nccl`,
+    RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT in the environment, as
+    torchrun sets them): its results go to <work>/<task>_rank<r>.pt."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--rank", type=int, required=True)
+    for flag in ("--backend", "--work", "--task"):
+        p.add_argument(flag, required=True)
+    a = p.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    from mammodissect_torch.device import set_fp32_policy
+    from mammodissect_torch.parallel.multihost import initialize
+
+    # the torchrun path: the topology from the environment, at any world size
+    check(initialize(backend=a.backend, device="cuda"), "no process group started")
+    world = dist.get_world_size()
+    set_fp32_policy()
+    torch.set_num_threads(max((os.cpu_count() or 2) // world, 1))  # the ranks share the host
+    device = torch.device("cuda", torch.cuda.current_device())
+    pool = np.load(os.path.join(a.work, "pool.npy"))
+    t0 = time.perf_counter()
+    out = {"part_s": {}}
+
+    def part(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out[name] = fn(*args, **kw)
+        out["part_s"][name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+    if a.task == "nccl":
+        part("dissect", par_dissect, device, pool, PAR_NCCL_N, os.path.join(a.work, "nccl"))
+    else:
+        from mammodissect_torch.parallel.mesh import make_mesh
+
+        part("dissect", par_dissect, device, pool, PAR_N, os.path.join(a.work, "gloo"))
+        part("finetune", par_finetune, device, pool, a.rank, world)
+        part("pretrain", par_pretrain, device, pool, mesh=make_mesh(model_parallel=world))
+        part("card_vs_cpu", par_card_vs_cpu, a.rank, world)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(a.work, f"{a.task}_rank{a.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(device, pool):
+    """Phase 14: the data- and tensor-parallel paths. The single-process references
+    first (resident M-dissect on PAR_N and PAR_NCCL_N images, the first pretraining
+    step), then (a) and (c) on two gloo ranks sharing the card, then (b) on one NCCL
+    rank."""
+    import pandas as pd
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    np.save(os.path.join(work, "pool.npy"), pool)
+    t_start = time.perf_counter()
+    dissector, _ = flagship_dissector(device)
+    single = par_dissect(device, pool, PAR_N, os.path.join(work, "single"), dissector)
+    single_64 = par_dissect(device, pool, PAR_NCCL_N, os.path.join(work, "single64"), dissector)
+    del dissector
+    torch.cuda.empty_cache()
+    pt_single = par_pretrain(device, pool)
+    ref_s = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, "gloo", work, "gloo")
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = spawn_ranks(1, "nccl", work, "nccl")
+    nccl_s = time.perf_counter() - t0
+
+    # (a) 1: the resident M-dissect over two ranks against the single process
+    per_rank = -(-PAR_N // 2)
+    n_batches = -(-per_rank // MAIN_BATCH)
+    frames = [r["dissect"]["df"] for r in ranks]
+    check(frames[0] == frames[1], "the two ranks scored different rows")
+    check(ranks[1]["dissect"]["csv_path"] is None, "a rank other than the first wrote the CSV")
+    for r, res in enumerate(ranks):
+        check(res["dissect"]["launches"] == {"mbconv": 32 * n_batches, "wpmi": 1},
+              f"rank {r} launches {res['dissect']['launches']}, expected "
+              f"{{'mbconv': {32 * n_batches}, 'wpmi': 1}}")
+    got = pd.read_csv(ranks[0]["dissect"]["csv_path"])
+    want = pd.read_csv(single["csv_path"])
+    top1 = np.mean([ast.literal_eval(a)[0] == ast.literal_eval(b)[0]
+                    for a, b in zip(got["description"], want["description"])])
+    same_images = float(np.mean(got["images"] == want["images"]))
+    sims = csv_similarities(got)
+    check(len(got) == 6992 and np.isfinite(sims).all(), "two-rank CSV: rows or similarities")
+    check(top1 >= 0.99, f"two-rank top-1 agreement with the single process {top1:.4f} < 0.99")
+    wall_2 = max(r["dissect"]["wall_s"] for r in ranks)
+
+    # (b): one NCCL rank writes the single process's CSV
+    n64 = pd.read_csv(nccl["dissect"]["csv_path"])
+    w64 = pd.read_csv(single_64["csv_path"])
+    identical = all(list(n64[c]) == list(w64[c]) for c in ("layer", "unit", "description",
+                                                             "similarity", "images"))
+    check(identical, "the one-rank NCCL CSV differs from the single-process CSV")
+    n64_batches = -(-PAR_NCCL_N // MAIN_BATCH)
+    check(nccl["dissect"]["launches"] == {"mbconv": 32 * n64_batches, "wpmi": 1},
+          f"NCCL rank launches {nccl['dissect']['launches']}")
+
+    # (a) 2: DP fine-tune
+    fts = [r["finetune"] for r in ranks]
+    check(fts[0]["losses"] == fts[1]["losses"] and np.isfinite(fts[0]["losses"]).all(),
+          f"DP fine-tune losses {[f['losses'] for f in fts]}")
+    check(all(f["train_launches"] == 0 and f["eval_launches"] == 32 for f in fts),
+          f"DP fine-tune kernel-2 launches {[(f['train_launches'], f['eval_launches']) for f in fts]}")
+    check(fts[0]["predictions"] == fts[1]["predictions"] and len(fts[0]["predictions"]) == FT_BATCH
+          and np.isfinite(fts[0]["predictions"]).all(), "DP eval predictions")
+
+    # (a) 3: DP + TP pretraining step against the single process's
+    pts = [r["pretrain"] for r in ranks]
+    loss_err = abs(pts[0]["losses"][0] - pt_single["losses"][0]) / abs(pt_single["losses"][0])
+    check(pts[0]["losses"] == pts[1]["losses"] and np.isfinite(pts[0]["losses"]).all(),
+          f"TP pretraining losses {[p['losses'] for p in pts]}")
+    check(loss_err <= PAR_BF16_LOSS_TOL,
+          f"TP pretraining first loss {pts[0]['losses'][0]} vs single {pt_single['losses'][0]}")
+    check(pts[0]["whole_word_embedding"] == (BERT_VOCAB, 768)
+          and pts[0]["local_word_embedding"] == (BERT_VOCAB // 2, 768),
+          f"TP word embedding {pts[0]['local_word_embedding']} of {pts[0]['whole_word_embedding']}")
+    cvc = ranks[0]["card_vs_cpu"]
+
+    gib = 2 ** 30
+    say(f"[parallel] references (single process: dissector build, {PAR_N} + {PAR_NCCL_N} "
+        f"images, pretraining steps) {ref_s:.1f} s; two gloo ranks {gloo_s:.1f} s (rank 0's "
+        f"parts { {k: round(v, 1) for k, v in ranks[0]['part_s'].items()} } s of "
+        f"{ranks[0]['seconds']:.1f}); one NCCL rank {nccl_s:.1f} s (its dissection "
+        f"{nccl['part_s']['dissect']:.1f} s)")
+    say(f"[parallel] (a) resident M-dissect, {PAR_N} images, B5 x 39 blocks at "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]}, bf16, 12-layer BERT, 762 concepts: two gloo ranks sharing "
+        f"the card {wall_2:.2f} s ({PAR_N / wall_2:.2f} img/s), single process "
+        f"{single['wall_s']:.2f} s ({PAR_N / single['wall_s']:.2f} img/s); top-1 agreement "
+        f"{top1:.4f}, identical top images {same_images:.4f}; launches a rank "
+        f"{ranks[0]['dissect']['launches']} ({n_batches} batches of {MAIN_BATCH}); peak a rank "
+        f"{[round(r['dissect']['max_memory_allocated_bytes'] / gib, 2) for r in ranks]} GiB")
+    say(f"[parallel] (a) DP fine-tune, B5 at {IMAGE_HW[0]}x{IMAGE_HW[1]}, global batch 8 "
+        f"({PAR_FT_ROWS} a rank), bf16: {[round(f['ms_per_step'], 2) for f in fts]} ms a step "
+        f"(2 timed), losses {[round(l, 4) for l in fts[0]['losses']]}, peak "
+        f"{[round(f['max_memory_allocated_bytes'] / gib, 2) for f in fts]} GiB; eval launches "
+        f"kernel 2 {fts[0]['eval_launches']} times a rank, {len(fts[0]['predictions'])} "
+        f"predictions gathered")
+    say(f"[parallel] (a) DP + TP (1, 2) pretraining, B5 + 12-layer BERT ({BERT_VOCAB}-row vocab, "
+        f"{pts[0]['local_word_embedding'][0]} a rank), global batch {PAR_PT_BATCH}, bf16: "
+        f"{[round(p['ms_per_step'], 2) for p in pts]} ms a step (2 timed) vs single "
+        f"{pt_single['ms_per_step']:.2f}; first loss {pts[0]['losses'][0]:.6f} vs single "
+        f"{pt_single['losses'][0]:.6f} (rel err {loss_err:.3g}, tol {PAR_BF16_LOSS_TOL}); peak "
+        f"{[round(p['max_memory_allocated_bytes'] / gib, 2) for p in pts]} GiB vs single "
+        f"{pt_single['max_memory_allocated_bytes'] / gib:.2f} GiB; {pts[0]['split_params']} "
+        f"parameters split")
+    say(f"[parallel] (b) one NCCL rank, {PAR_NCCL_N} images: CSV identical to the single "
+        f"process's; launches {nccl['dissect']['launches']}")
+    say(f"[parallel] (c) card vs CPU on two ranks: DP fine-tune losses max rel err "
+        f"{cvc['ft_loss_max_rel_err']:.3g} (tol 1e-4), weights within "
+        f"{cvc['ft_worst_share_of_tol']:.3g} of tolerance (worst {cvc['ft_worst']}); TP step loss "
+        f"rel err {cvc['tp_loss_rel_err']:.3g}, {cvc['tp_entries_outside']} of "
+        f"{cvc['tp_entries']} entries outside 1e-5 + 1e-3 max|x|, worst {cvc['tp_worst_abs_err']:.3g}")
+    return {"images": PAR_N, "two_rank_wall_s": wall_2, "single_wall_s": single["wall_s"],
+            "top1_agreement": top1, "identical_top_images": same_images,
+            "launches_dissect_per_rank": [r["dissect"]["launches"] for r in ranks],
+            "launches_nccl": nccl["dissect"]["launches"],
+            "finetune": fts, "pretrain": pts, "pretrain_single": pt_single,
+            "card_vs_cpu": cvc, "reference_s": ref_s, "gloo_s": gloo_s, "nccl_s": nccl_s}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         say("chip_smoke: no CUDA GPU available")
         return 1
+    if "--rank" in sys.argv:  # a spawned rank of phase 14
+        return rank_main(sys.argv[1:])
     sys.path.insert(0, ROOT)
     import mammodissect_torch  # noqa: F401  (fails outside a checkout of the repo)
     from mammodissect_torch.device import set_fp32_policy
@@ -1894,6 +2364,10 @@ def main():
     t0 = time.perf_counter()
     v2pt = phase_v2_pretrain(device, pool, c_dissect, finetune["end_to_end"]["png_root"])
     say(f"[v2/pretrain] phase 13 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    par = phase_parallel(device, pool)
+    say(f"[parallel] phase 14 in {time.perf_counter() - t0:.1f} s")
     pt_launches = {key: [v2pt["pretrain"][name]["launches"][key]
                          for name in ("plain", "bert_checkpoint", "bert_checkpoint_again",
                                       "plain_again")] + [v2pt["pretrain_cli"]["launches"][key]]
@@ -1926,7 +2400,11 @@ def main():
          # (phase 13c/d: the two timed runs and the CLI's epoch)
          "launches_c_dissect_v2": v2pt["c_dissect_v2"]["launches"]["wpmi"],
          "launches_pretrain": pt_launches["wpmi"],
-         "c_dissect_v2": v2pt["kernel1"]},
+         "c_dissect_v2": v2pt["kernel1"],
+         # phase 14: each rank of the two-rank resident M-dissect scores the gathered
+         # rows once; the one-rank NCCL run once
+         "launches_parallel_per_rank": [r["wpmi"] for r in par["launches_dissect_per_rank"]],
+         "launches_parallel_nccl": par["launches_nccl"]["wpmi"]},
         {"name": "fused_expand_dw", "route": "cuda",
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
@@ -1953,7 +2431,12 @@ def main():
          "launches_c_dissect_v2": v2pt["c_dissect_v2"]["launches"]["mbconv"],
          "launches_pretrain": pt_launches["mbconv"],
          # at each V2-S shape, fp32 and bf16, batch 16, and one V2-S forward's 28 launches
-         "v2_shapes": v2pt["v2_shapes"], "v2_forward": v2pt["v2_forward"]},
+         "v2_shapes": v2pt["v2_shapes"], "v2_forward": v2pt["v2_forward"],
+         # phase 14: 32 a batch on each rank of the two-rank resident M-dissect, the
+         # one-rank NCCL run, and 32 in each rank's DP fine-tune eval batch
+         "launches_parallel_per_rank": [r["mbconv"] for r in par["launches_dissect_per_rank"]],
+         "launches_parallel_nccl": par["launches_nccl"]["mbconv"],
+         "launches_parallel_finetune_eval": [f["eval_launches"] for f in par["finetune"]]},
     ]
     say(f"[kernel 2] one forward's 32 launches at batch {MAIN_BATCH}, bf16: "
         f"{per_forward('ms'):.3f} ms (first version {FIRST_VERSION_MS['mbconv_forward']} ms), "
@@ -1968,6 +2451,8 @@ def main():
         f"V2 C-dissect {v2pt['c_dissect_v2']['img_per_s']:.2f} img/s, pretrain "
         f"{v2pt['pretrain']['plain']['ms_per_step']:.2f} ms a step (BERT checkpoint "
         f"{v2pt['pretrain']['bert_checkpoint']['ms_per_step']:.2f}), "
+        f"two-rank M-dissect {par['images'] / par['two_rank_wall_s']:.2f} img/s (single "
+        f"{par['images'] / par['single_wall_s']:.2f}), "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

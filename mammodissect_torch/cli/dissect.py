@@ -16,6 +16,16 @@ and `--num_top_concepts 1` are the og and clip-neuron modes):
     --target_layers 'vision_model.encoder.layers[0],...' --d_probe folder:images/
 
 `--device` defaults to cuda and raises without a GPU; `--device cpu` runs on the CPU.
+Several GPUs: one process each, started by torchrun (NCCL; gloo with `--device
+cpu`); each rank harvests its shard of the probe, every rank scores the gathered
+rows, the first writes the CSV:
+
+  torchrun --nproc_per_node 2 -m mammodissect_torch.cli.dissect --resident ...
+
+`--wandb` logs the run's config and the reference driver's status events to an
+offline wandb run (a no-op without wandb), `--debug_nans` raises at the first module
+whose output holds a NaN or an Inf, `--profile DIR` writes a torch.profiler Chrome
+trace to DIR/trace.json and prints the top operators and the device's idle share.
 Targets: breastclip, breastclip_classifier, tiny_cnn, the CLIP ViTs (ViT-B/32, ViT-B/16,
 ViT-L/14, clip, clip-cub, clip-bloodmnist) and ModifiedResNets (clip_rn50, clip_rn101,
 clip_rn50x4); dissectors: breastclip, the CLIP ViTs, random.
@@ -24,11 +34,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
 
 from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
+from mammodissect_torch.parallel.mesh import is_master
+from mammodissect_torch.parallel.multihost import initialize
+from mammodissect_torch.train.loggers import WandbLogger
+from mammodissect_torch.utils.profiling import TRACE_FILE, enable_debug_nans, trace
 
 # the canonical 762-concept set, read in place as a data file
 CONCEPT_SET = (Path(__file__).resolve().parents[2] / "mammodissect" / "assets" / "concepts"
@@ -87,10 +102,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--naming", choices=("generated", "og"), default="generated",
                    help="'og' writes CSV/args files under describe_og_neurons.py's "
                         "hardcoded name matrix")
+    p.add_argument("--wandb", action="store_true",
+                   help="log the run's config and status events to wandb (offline mode), "
+                        "the reference driver's status stream "
+                        "(describe_broad_neurons.py:14,77,99,121,173)")
+    p.add_argument("--wandb_name", type=str, default=None, help="wandb run name")
     p.add_argument("--profile", type=str, default=None,
-                   help="write a torch.profiler Chrome trace of the run to this file and "
-                        "print the top operators by device (or CPU) time and the device's "
-                        "busy time and idle share over the run")
+                   help="write a torch.profiler Chrome trace of the run to this directory "
+                        f"({TRACE_FILE}) and print the top operators by device (or CPU) "
+                        "time and the device's busy time and idle share over the run")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise at the first module whose output holds a NaN or an Inf, "
+                        "naming it (jax_debug_nans' counterpart)")
     return p
 
 
@@ -141,28 +164,50 @@ def main(argv=None):
         naming=args.naming,
         device=args.device,
     )
-    if args.profile:
-        import torch.profiler as tp
+    if cfg.device.startswith("cuda"):
+        from mammodissect_torch.device import resolve_device
 
-        on_gpu = cfg.device.startswith("cuda")
-        activities = [tp.ProfilerActivity.CPU] + ([tp.ProfilerActivity.CUDA] if on_gpu else [])
-        with tp.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            df, csv_path = run_dissection(cfg, log=print)
-            wall = time.perf_counter() - t0
-        prof.export_chrome_trace(args.profile)
-        sort_by = "self_device_time_total" if on_gpu else "self_cpu_time_total"
-        print(prof.key_averages().table(sort_by=sort_by, row_limit=25))
-        if on_gpu:  # the device's idle share, from this run's own trace
-            with open(args.profile) as f:
-                dev = device_busy(json.load(f).get("traceEvents", []))
-            span = dev["first_to_last_s"]
-            print(f"[profile] device busy {dev['busy_s']:.3f} s; run {wall:.3f} s wall "
-                  f"(idle {1 - dev['busy_s'] / wall:.1%}); first to last device op "
-                  f"{span:.3f} s (idle {1 - dev['busy_s'] / span if span else 0:.1%})")
-    else:
-        df, csv_path = run_dissection(cfg, log=print)
-    print(f"Dissection done! {len(df)} units described. Results saved to {csv_path}")
+        resolve_device(cfg.device)  # no GPU: raise before a process group starts
+    initialize(device=cfg.device)  # torchrun's ranks, if any
+    enable_debug_nans(args.debug_nans)
+    try:
+        # the reference driver's wandb status events (`describe_broad_neurons.py:77,99,121,
+        # 173`); the per-layer events come from the engine's "[score] <layer>: ..." lines
+        wb = WandbLogger(project="broader_clip-dissect", name=args.wandb_name, config=vars(args),
+                         enabled=args.wandb)
+
+        def log(msg):
+            print(msg)
+            s = str(msg)
+            if s.startswith("[score] "):
+                wb.log({"layer": s[len("[score] "):].split(":")[0], "similarity_calculated": True})
+            elif s.startswith(("[harvest]", "[fused]", "[resident]")):
+                wb.log({"status": "activations_saved"})
+
+        if args.profile:
+            on_gpu = cfg.device.startswith("cuda")
+            with trace(args.profile) as prof:
+                t0 = time.perf_counter()
+                df, csv_path = run_dissection(cfg, log=log)
+                wall = time.perf_counter() - t0
+            sort_by = "self_device_time_total" if on_gpu else "self_cpu_time_total"
+            print(prof.key_averages().table(sort_by=sort_by, row_limit=25))
+            if on_gpu:  # the device's idle share, from this run's own trace
+                with open(os.path.join(args.profile, TRACE_FILE)) as f:
+                    dev = device_busy(json.load(f).get("traceEvents", []))
+                span = dev["first_to_last_s"]
+                print(f"[profile] device busy {dev['busy_s']:.3f} s; run {wall:.3f} s wall "
+                      f"(idle {1 - dev['busy_s'] / wall:.1%}); first to last device op "
+                      f"{span:.3f} s (idle {1 - dev['busy_s'] / span if span else 0:.1%})")
+        else:
+            df, csv_path = run_dissection(cfg, log=log)
+        wb.log({"status": "all_layers_processed"})
+        wb.log({"status": "results_saved"})
+        wb.finish()
+    finally:
+        enable_debug_nans(False)
+    if is_master():
+        print(f"Dissection done! {len(df)} units described. Results saved to {csv_path}")
     return 0
 
 

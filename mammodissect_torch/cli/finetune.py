@@ -8,6 +8,12 @@ the reference's `Finetune/lumi_single_gpu_train_classifier.py` flag surface, `:1
 `--device` defaults to cuda and raises without a GPU; `--device cpu` runs on the CPU.
 The best checkpoint is a `.pth` under --checkpoints that the dissect CLI takes as
 `--target_model breastclip_classifier --finetuned_img_classifier_chkpt <path>`.
+
+Several GPUs: one process each, started by torchrun (NCCL on the card; gloo with
+`--device cpu`); every rank trains on its slice of each epoch, `--batch-size` rows a
+rank, and the first rank writes the outputs:
+
+  torchrun --nproc_per_node 2 -m mammodissect_torch.cli.finetune ... --device cpu
 """
 from __future__ import annotations
 
@@ -58,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume-from", dest="resume_from", default=None,
                    help="checkpoint (.pth) to resume training from (weights, optimizer, epoch)")
     p.add_argument("--model-parallel", dest="model_parallel", type=int, default=1,
-                   help="must be 1: the port trains on one device")
+                   help="ranks of the mesh's model axis (needs torchrun's process group); "
+                        "the classifier has no split parameter, so they share data slices")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
                    help="compute dtype; parameters and optimizer state stay float32")
     p.add_argument("--pad-mode", "--pad_mode", dest="pad_mode", default="static",
@@ -81,9 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from mammodissect_torch.device import resolve_device
+    from mammodissect_torch.parallel.mesh import is_master
+    from mammodissect_torch.parallel.multihost import initialize
     from mammodissect_torch.train.experiments import FinetuneConfig, do_experiments
 
     args = build_parser().parse_args(argv)
+    initialize(device=str(resolve_device(args.device)))  # torchrun's ranks, if any
     cfg = FinetuneConfig(
         csv_file=args.csv_file,
         data_dir=args.data_dir,
@@ -124,8 +135,9 @@ def main(argv=None):
         wandb=args.wandb,
         device=args.device,
     )
-    oof = do_experiments(cfg)
-    print(f"done: {len(oof)} out-of-fold predictions")
+    oof = do_experiments(cfg, log=print if is_master() else (lambda *_: None))
+    if is_master():
+        print(f"done: {len(oof)} out-of-fold predictions")
     return 0
 
 

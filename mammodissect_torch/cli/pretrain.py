@@ -7,9 +7,15 @@
 `--device` defaults to cuda and raises without a GPU; `--device cpu` runs on the CPU.
 Without `--prompts-json`, finding-labelled CSVs generate their reports from the
 canonical prompt templates, read by path from the JAX package's data files
-(`mammodissect/assets/dataset/prompts.json`). `--model-parallel` > 1 is multi-GPU
-work (roadmap item 17) and raises. Writes `step_{n}.pth` / `final.pth` under
---checkpoints and prints the result as one JSON line.
+(`mammodissect/assets/dataset/prompts.json`). Writes `step_{n}.pth` / `final.pth`
+under --checkpoints (the first rank) and prints the result as one JSON line.
+
+Several GPUs: one process each, started by torchrun, which sets the ranks
+(`parallel.multihost.initialize` reads them; NCCL on the card, gloo with
+`--device cpu`). `--model-parallel N` splits BERT and the projection heads over N
+ranks and needs that process group:
+
+  torchrun --nproc_per_node 2 -m mammodissect_torch.cli.pretrain ... --model-parallel 2
 """
 from __future__ import annotations
 
@@ -53,13 +59,13 @@ def main(argv=None):
     import pandas as pd
 
     from mammodissect_torch.data.imagetext import ImageTextDataset
+    from mammodissect_torch.device import resolve_device
+    from mammodissect_torch.parallel.mesh import is_master
+    from mammodissect_torch.parallel.multihost import initialize
     from mammodissect_torch.train.pretrain import PretrainConfig, pretrain
 
     args = build_parser().parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the port pretrains on one device; "
-            "multi-GPU training is roadmap item 17")
+    initialize(device=str(resolve_device(args.device)))  # torchrun's ranks, if any
     # FINDING-labelled CSVs (vindr) generate text from the canonical prompt templates,
     # which the reference always supplies (`data_utils.py:119`)
     prompts_json = args.prompts_json or str(PROMPTS_JSON)
@@ -77,8 +83,9 @@ def main(argv=None):
     df = pd.read_csv(cfg.csv_file)
     ds = ImageTextDataset(df, root=cfg.root, img_dir=cfg.img_dir, dataset=cfg.dataset,
                           size_hw=tuple(cfg.img_size), prompt_json=prompt_json, seed=cfg.seed)
-    result = pretrain(cfg, ds)
-    print(json.dumps(result))
+    result = pretrain(cfg, ds, log=print if is_master() else (lambda *_: None))
+    if is_master():
+        print(json.dumps(result))
     return 0
 
 

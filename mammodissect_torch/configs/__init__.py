@@ -1,11 +1,11 @@
-"""Config files (the part of `mammodissect/configs/config.py` fine-tuning uses, copied)."""
-from __future__ import annotations
+"""Dataclass configs: files, overrides and presets (`configs/config.py`)."""
 
-import dataclasses
-import json
+from mammodissect_torch.configs.config import (
+    ZeroShotConfig,
+    apply_overrides,
+    load_config,
+    load_preset,
+    save_config,
+)
 
-
-def save_config(cfg, path: str) -> None:
-    """A dataclass config as JSON."""
-    with open(path, "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+__all__ = ["load_config", "load_preset", "save_config", "apply_overrides", "ZeroShotConfig"]

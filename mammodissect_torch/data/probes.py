@@ -48,6 +48,47 @@ class Probe:
         return None
 
 
+class HostShardedProbe(Probe):
+    """This rank's contiguous shard of a probe, the DistributedSampler of each rank
+    (`Datasets/dataset_utils.py:236-251`), JAX's contract: every shard holds
+    ceil(n / count) images, the last one repeating the probe's final image (wrap
+    padding), and callers trim the gathered result to the true total
+    (`parallel.multihost.gather_predictions`). `index`/`count` default to this
+    process's rank and the world size."""
+
+    def __init__(self, probe: Probe, index: Optional[int] = None, count: Optional[int] = None):
+        import torch.distributed as dist
+
+        up = dist.is_initialized()
+        self.base = probe
+        self.index = (dist.get_rank() if up else 0) if index is None else index
+        self.count = (dist.get_world_size() if up else 1) if count is None else count
+        self.per_host = -(-len(probe) // self.count)
+        self.image_shape = probe.image_shape
+        for attr in ("mean", "std"):
+            if hasattr(probe, attr):
+                setattr(self, attr, getattr(probe, attr))
+        if hasattr(probe, "image_spans"):
+            # an instance attribute: hasattr(shard, "image_spans") mirrors the base
+            # probe (the packed wire's detection), the index remapped as elsewhere
+            self.image_spans = lambda i: probe.image_spans(self._base_index(i))
+
+    def __len__(self):
+        return self.per_host
+
+    def _base_index(self, i: int) -> int:
+        return min(self.index * self.per_host + i, len(self.base) - 1)
+
+    def image(self, i):
+        return self.base.image(self._base_index(i))
+
+    def label(self, i):
+        return self.base.label(self._base_index(i))
+
+    def image_u8(self, i):
+        return self.base.image_u8(self._base_index(i))
+
+
 @dataclass
 class ArrayProbe(Probe):
     """In-memory probe (synthetic data, tests, benchmarks)."""

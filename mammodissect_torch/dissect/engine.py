@@ -1,5 +1,5 @@
 """Dissection engine: harvest, cache, score (counterpart of
-`mammodissect/dissect/engine.py`, single process).
+`mammodissect/dissect/engine.py`).
 
 Two paths write the same CSV.
 
@@ -24,6 +24,17 @@ Staged (disk cache, the reference's design, `concept_vit/utils.py`):
 with the reference's cache names (`get_save_names`, `utils.py:54-62`) and
 skip-if-exists, so an interrupted run resumes. When target and dissector are the
 same BreastClip, stages 1 and 2 are one fused pass (`_fused_harvest_embed`).
+
+Under a process group (one process per GPU, `parallel.multihost.initialize`) each
+rank harvests its contiguous `HostShardedProbe` shard and the results are
+all-gathered back into probe order and trimmed to the probe's length, the
+reference's DistributedSampler with all_gather-and-trim (`experiments.py:554-564`):
+the staged harvest divides the batch by the ranks as JAX does; the resident path
+keeps each rank's batch, spills under a per-rank key and gathers its accumulators
+(`_gather_resident`). Every rank scores the gathered matrix, as every JAX process
+does; only the first rank writes the CSV and args.txt (every rank holds the same
+rows), while each rank writes the cache files it reads (atomic renames). The ranks
+agree on what the cache holds before they harvest.
 """
 from __future__ import annotations
 
@@ -40,9 +51,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mammodissect_torch.data.loader import iter_batches
-from mammodissect_torch.data.probes import get_probe
+from mammodissect_torch.data.probes import HostShardedProbe, get_probe
 from mammodissect_torch.device import resolve_device, set_fp32_policy
 from mammodissect_torch.dissect.capture import canonical_layer_name
 from mammodissect_torch.dissect.dissectors import get_dissector
@@ -56,6 +68,9 @@ from mammodissect_torch.dissect.targets import get_target_model
 from mammodissect_torch.ops.pooling import PM_SUFFIX
 from mammodissect_torch.ops.similarity import SEGMENTED_FNS, get_similarity_fn
 from mammodissect_torch.ops.topk import topk_lowest_index
+from mammodissect_torch.parallel.collectives import all_gather, psum
+from mammodissect_torch.parallel.mesh import data_group, is_master
+from mammodissect_torch.parallel.multihost import comm_device, gather_array
 
 
 @dataclass
@@ -155,6 +170,26 @@ def _has_u8(probe) -> bool:
     return True
 
 
+def _dp_shard(probe):
+    """(the probe this rank harvests, the probe's true length, the data group): this
+    rank's HostShardedProbe under a process group, else the probe itself and None."""
+    group = data_group()
+    if group is None:
+        return probe, len(probe), None
+    if not isinstance(probe, HostShardedProbe):
+        probe = HostShardedProbe(probe)
+    return probe, len(probe.base), group
+
+
+def _missing_on_any_rank(missing: List[bool], group) -> List[bool]:
+    """Each flag set where it is set on some rank: the ranks take the same branches,
+    so their collectives meet (a node-local cache may differ between ranks)."""
+    if group is None:
+        return missing
+    flags = psum(torch.tensor(missing, dtype=torch.float32, device=comm_device(group)), group)
+    return [bool(f > 0) for f in flags.cpu()]
+
+
 def _dissector_kwargs(cfg) -> dict:
     dk = dict(cfg.dissector_kwargs)
     if cfg.clip_model.startswith("breastclip"):
@@ -190,8 +225,11 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
         target_paths[layer] = t
         paths["clip"], paths["text"] = c, x
     paths.update({f"target:{k}": v for k, v in target_paths.items()})
-    missing_layers = [l for l in layers if not os.path.exists(target_paths[l])]
-    clip_missing = not os.path.exists(paths["clip"])
+    group = data_group()
+    *layer_flags, clip_missing, text_missing = _missing_on_any_rank(
+        [not os.path.exists(target_paths[l]) for l in layers]
+        + [not os.path.exists(paths["clip"]), not os.path.exists(paths["text"])], group)
+    missing_layers = [l for l, m in zip(layers, layer_flags) if m]
 
     # fused M-dissect: the target IS the dissector's image tower, so one forward per
     # batch gives the activations and the probe embeddings (half the compute and
@@ -231,23 +269,27 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
     if clip_missing:
         dissector = dissector or _build_dissector(cfg, log)
         t0 = time.time()
-        use_u8 = hasattr(dissector, "embed_images_u8") and _has_u8(probe)
+        shard, n_total, group = _dp_shard(probe)
+        use_u8 = hasattr(dissector, "embed_images_u8") and _has_u8(shard)
         feats = []
         if use_u8:
             pin = getattr(dissector, "device", torch.device("cpu")).type == "cuda"
-            for u8, n_valid in _prefetch_u8_batches(probe, bs, pin=pin):
-                feats.append(dissector.embed_images_u8(u8, probe.mean, probe.std)[:n_valid])
+            for u8, n_valid in _prefetch_u8_batches(shard, bs, pin=pin):
+                feats.append(dissector.embed_images_u8(u8, shard.mean, shard.std)[:n_valid])
         else:
-            for batch in iter_batches(probe, bs):
+            for batch in iter_batches(shard, bs):
                 feats.append(dissector.embed_images(batch.images)[:batch.n_valid])
-        _atomic_np_save(paths["clip"], np.concatenate(feats, axis=0))
+        feats = np.concatenate(feats, axis=0)
+        if group is not None:
+            feats = gather_array(feats, group)[:n_total]
+        _atomic_np_save(paths["clip"], feats)
         log(f"[clip-img] embedded D_probe in {time.time() - t0:.1f}s"
             + (" (uint8 wire)" if use_u8 else ""))
     else:
         log("[clip-img] probe embeddings cached, skipping")
 
     # stage 3: the concepts' text embeddings
-    if not os.path.exists(paths["text"]):
+    if text_missing:
         dissector = dissector or _build_dissector(cfg, log)
         t0 = time.time()
         words = read_concepts(cfg.concept_set)
@@ -396,9 +438,23 @@ def harvest_probe(target, probe, layers, pool_mode: str, batch_size: int,
     A probe with uint8 images and a target that normalizes on the device take the
     uint8 wire (4x fewer bytes than float32), from pinned memory, with up to
     `pipeline_depth` batches queued on the device ahead of the one the host reads.
-    Other probes go through float32 batches (`iter_batches`).
+    Other probes go through float32 batches (`iter_batches`). Under a process group
+    each rank harvests its HostShardedProbe shard at batch_size // ranks, and the
+    layers are gathered in probe order and trimmed to the probe's length.
 
     Returns ({layer: [N, C] float32}, n_images)."""
+    probe, n_total, group = _dp_shard(probe)
+    if group is not None:
+        batch_size = max(batch_size // dist.get_world_size(group), 1)
+    local, n_images = _harvest_local(target, probe, layers, pool_mode, batch_size,
+                                     pipeline_depth)
+    if group is None:
+        return local, n_images
+    return {l: gather_array(local[l], group)[:n_total] for l in layers}, n_total
+
+
+def _harvest_local(target, probe, layers, pool_mode: str, batch_size: int,
+                   pipeline_depth: int):
     acc: Dict[str, list] = {l: [] for l in layers}
     if not (hasattr(target, "harvest_u8_dispatch") and _has_u8(probe)):
         n_images = 0
@@ -423,8 +479,11 @@ def harvest_probe(target, probe, layers, pool_mode: str, batch_size: int,
 
 def _fused_harvest_embed(dissector, probe, layers, pool_mode: str, batch_size: int,
                          pipeline_depth: int = 2):
-    """The fused stages 1 and 2 (see save_activations), pipelined as harvest_probe.
-    Returns ({layer: [N, C]}, embeddings [N, D], n_images)."""
+    """The fused stages 1 and 2 (see save_activations), pipelined and sharded over
+    the ranks as harvest_probe. Returns ({layer: [N, C]}, embeddings [N, D], n_images)."""
+    probe, n_total, group = _dp_shard(probe)
+    if group is not None:
+        batch_size = max(batch_size // dist.get_world_size(group), 1)
     acc: Dict[str, list] = {l: [] for l in layers}
     emb_acc: list = []
 
@@ -439,8 +498,12 @@ def _fused_harvest_embed(dissector, probe, layers, pool_mode: str, batch_size: i
         lambda u8: dissector.harvest_and_embed_u8_dispatch(u8, layers, pool_mode,
                                                            probe.mean, probe.std),
         drain, pipeline_depth)
-    return ({l: np.concatenate(acc[l], axis=0) for l in layers},
-            np.concatenate(emb_acc, axis=0), n_images)
+    acts = {l: np.concatenate(acc[l], axis=0) for l in layers}
+    embs = np.concatenate(emb_acc, axis=0)
+    if group is None:
+        return acts, embs, n_images
+    return ({l: gather_array(acts[l], group)[:n_total] for l in layers},
+            gather_array(embs, group)[:n_total], n_total)
 
 
 class _ChunkSpiller:
@@ -763,15 +826,40 @@ def score_all_layers(feats_by_layer: Dict[str, np.ndarray], clip_save_name: str,
     return out
 
 
+def _gather_resident(act_chunks, emb_chunks, n_local: int, probe: HostShardedProbe, group):
+    """The ranks' resident accumulators in probe order (JAX's
+    `_gather_resident_multihost`): each rank harvested its contiguous shard and may
+    stop at another batch under a deadline, so all trim to the common minimum,
+    all-gather (tiled: the shards concatenate in probe order) and drop the shards'
+    wrap-padding rows (indices past the probe's length).
+
+    Returns (act_chunks, emb_chunks, n_images, index_map): index_map[i] is the probe
+    index of gathered row i, which the CSV's top-image ids pass through."""
+    device = act_chunks[0].device
+    acts = torch.cat(list(act_chunks), dim=0)[:n_local]
+    embs = torch.cat(list(emb_chunks), dim=0)[:n_local]
+    counts = all_gather(torch.tensor([n_local], device=device), group).cpu().numpy()
+    n_min = int(counts.min())
+    acts, embs = all_gather(acts[:n_min], group), all_gather(embs[:n_min], group)
+    idx = np.concatenate([np.arange(h * probe.per_host, h * probe.per_host + n_min)
+                          for h in range(len(counts))])
+    keep = idx < len(probe.base)
+    keep_t = torch.from_numpy(keep).to(device)
+    return [acts[keep_t]], [embs[keep_t]], int(keep.sum()), idx[keep]
+
+
 def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=None,
                              log=print, timing=None):
     """Fully device-resident M-dissect. Returns (DataFrame, csv_path), or None when
     the configuration cannot run resident (another target, target kwargs, a
-    fine-tuned checkpoint, a target object, or a probe without uint8 images)."""
+    fine-tuned checkpoint, a target object, or a probe without uint8 images).
+    Under a process group each rank harvests its shard (batch cfg.batch_size) and
+    the accumulators are gathered for scoring (`_gather_resident`)."""
     if not (cfg.target_model == "breastclip" and cfg.clip_model == "breastclip"
             and not cfg.target_kwargs and not cfg.finetuned_ckpt and target is None
             and _has_u8(probe)):
         return None
+    probe, _, group = _dp_shard(probe)
     dissector = dissector or _build_dissector(cfg, log)
     bs = cfg.batch_size
 
@@ -787,6 +875,9 @@ def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=N
                              cfg.breast_clip_ckpt, wire_mode, "torch",
                              sorted(cfg.dissector_kwargs.items()))).encode()).hexdigest()[:8]
     cache_key = f"{cfg.save_prefix}{d_probe_key}_{cfg.clip_model}_resident_b{bs}_{sig}"
+    if group is not None:  # each rank spills its own shard's chunks
+        rank, size = dist.get_rank(group), dist.get_world_size(group)
+        cache_key += f"_host{rank}of{size}"
     deadline = time.monotonic() + cfg.deadline_s if cfg.deadline_s is not None else None
     t0 = time.time()
     act_chunks, emb_chunks, names, widths, n_images = fused_harvest_embed_resident(
@@ -795,11 +886,19 @@ def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=N
     if n_images < len(probe):
         log(f"[resident] PARTIAL dissection: {n_images}/{len(probe)} images within "
             f"the {cfg.deadline_s}s budget; rerun to resume and complete")
+    index_map = None
+    if group is not None:
+        act_chunks, emb_chunks, n_images, index_map = _gather_resident(
+            act_chunks, emb_chunks, n_images, probe, group)
+        log(f"[resident] gathered {n_images} rows from {dist.get_world_size(group)} "
+            f"rank shards for scoring")
     text_feats = dissector.embed_texts(words)
     top_vals, top_idx, img_idx = score_resident(
         act_chunks, emb_chunks, n_images, text_feats, widths, cfg.similarity_fn,
         top_k=cfg.top_k, num_top_concepts=cfg.num_top_concepts,
         num_top_images=cfg.num_top_images)
+    if index_map is not None:  # the gathered rows' top images as probe indices
+        img_idx = index_map[img_idx]
     log(f"[resident] dissected {n_images} images x {len(names)} layers on "
         f"{dissector.device} in {time.time() - t0:.1f}s")
 
@@ -817,7 +916,7 @@ def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=N
         outputs["similarity"].extend([row.tolist() for row in top_vals[sl]])
         outputs["images"].extend([row.tolist() for row in img_idx[sl]])
         log(f"[score] {layer}: {w} units scored")
-    return write_results(outputs, cfg)
+    return write_results(outputs, cfg, write=is_master())
 
 
 def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, log=print,
@@ -868,7 +967,7 @@ def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, 
         outputs["similarity"].extend([row.tolist() for row in top_vals])
         outputs["images"].extend([row.tolist() for row in top_images])
         log(f"[score] {layer}: {n_units} units scored")
-    df, csv_path = write_results(outputs, cfg)
+    df, csv_path = write_results(outputs, cfg, write=is_master())
     log(f"[results] top concepts and images of {len(df)} units, CSV written in "
         f"{time.time() - t0:.2f}s")
     return df, csv_path

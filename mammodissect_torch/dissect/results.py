@@ -70,8 +70,13 @@ _SIMILARITY_NOTES = {
 }
 
 
-def write_results(outputs: dict, cfg):
+def write_results(outputs: dict, cfg, write: bool = True):
+    """The results frame, and its CSV and args.txt under a stamped directory of
+    `cfg.result_dir`: (df, csv_path). `write` False (every rank but the first of a
+    data-parallel run, which holds the same rows) writes nothing: (df, None)."""
     df = pd.DataFrame(outputs)
+    if not write:
+        return df, None
     stamp = datetime.datetime.now().strftime("%y_%m_%d_%H_%M")
     save_dir = os.path.join(cfg.result_dir, f"{_file_name(cfg.target_model)}_{stamp}")
     os.makedirs(save_dir, exist_ok=True)

@@ -49,19 +49,19 @@ class BertSelfAttention(nn.Module):
     def __init__(self, hidden_size, num_heads):
         super().__init__()
         self.num_heads = num_heads
+        self.local_heads = num_heads  # this rank's heads (tensor parallelism splits them)
         self.query = Linear(hidden_size, hidden_size)
         self.key = Linear(hidden_size, hidden_size)
         self.value = Linear(hidden_size, hidden_size)
 
     def forward(self, x, attn_bias):
-        b, t, d = x.shape
-        d_head = d // self.num_heads
+        b, t, _ = x.shape
 
         def split(a):  # [B, T, D] -> [B, heads, T, d_head]
-            return a.reshape(b, t, self.num_heads, d_head).transpose(1, 2)
+            return a.reshape(b, t, self.local_heads, -1).transpose(1, 2)
 
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        return attend(q, k, v, x.dtype, attn_bias).transpose(1, 2).reshape(b, t, d)
+        return attend(q, k, v, x.dtype, attn_bias).transpose(1, 2).reshape(b, t, -1)
 
 
 class BertSelfOutput(nn.Module):

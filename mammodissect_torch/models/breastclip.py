@@ -16,7 +16,8 @@ the swin and vit towers), `text_encoder.encoder.layer.i...`,
 
 `BreastClipModule.forward(batch, generator)` is the training forward of contrastive
 pretraining (`mammodissect/models/breastclip.py:147-167`): the normalized image and
-text embeddings, `labels` = arange(B) and exp(logit_scale), plus
+text embeddings, `labels` = arange(B) (in a data-parallel step arange over the
+global batch, offset by the rank: `parallel.mesh.data_parallel`) and exp(logit_scale), plus
 `text_embeddings2` and `image_view_embeddings` when the batch has `input_ids2` and
 `image_views`. In training mode the image tower normalizes by batch statistics and
 draws its drop-connect masks, and the MLP projection heads their dropout masks,
@@ -58,6 +59,7 @@ from mammodissect_torch.models.swin import SwinEncoder, init_swin_weights
 from mammodissect_torch.models.vit_encoder import ViTImageEncoder, init_vit_weights
 from mammodissect_torch.models.tokenizers import WordPieceTokenizer
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
+from mammodissect_torch.parallel.mesh import active_data_group, group_rank_and_size
 
 
 def default_model_config() -> Dict:
@@ -180,9 +182,12 @@ class BreastClipModule(nn.Module):
             return self.project_text(self.encode_text(ids, mask), generator)
 
         image_emb = image(batch["images"])
+        # in a data-parallel step: arange over the global batch, offset by the rank
+        rank, _ = group_rank_and_size(active_data_group())
+        b = image_emb.shape[0]
         out = {"image_embeddings": image_emb,
                "text_embeddings": text(batch["input_ids"], batch["attention_mask"]),
-               "labels": torch.arange(image_emb.shape[0], device=image_emb.device),
+               "labels": torch.arange(b, device=image_emb.device) + rank * b,
                "logit_scale": self.logit_scale.exp()}
         if "input_ids2" in batch and "image_views" in batch:
             out["text_embeddings2"] = text(batch["input_ids2"], batch["attention_mask2"])

@@ -9,6 +9,11 @@
   activation dtype, with float32 parameters (flax's dtype policy in the JAX
   package; cuDNN's bf16 batch norm does the same internally). BatchNorm2d trains
   with flax's rule (batch statistics, biased variance, momentum on the old value).
+- Inside `parallel.mesh.data_parallel(group)` a forward is one rank's part of a
+  data-parallel step, as JAX's global-view step sees the global batch: training
+  BatchNorm takes its moments over the group's global batch (`_SyncBatchNorm`),
+  and the drop-connect and dropout masks are drawn on the global batch's shape
+  from the step's generator and sliced by rank.
 - Linear / Conv2d: compute in `compute_dtype`, by default their weight's dtype;
   the input, weight and bias are cast at use (flax's `dtype=` over `param_dtype=`:
   float32 master weights with bf16 compute in fine-tuning).
@@ -34,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mammodissect_torch.ops.pooling import gem_pool
+from mammodissect_torch.parallel.collectives import all_gather, psum
+from mammodissect_torch.parallel.mesh import active_data_group, group_rank_and_size
 
 
 def round_filters(filters: int, width_coefficient: float | None, depth_divisor: int = 8,
@@ -76,11 +83,18 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
 
 
+def _global_rand(shape, generator, device) -> torch.Tensor:
+    """Uniform draws of `shape` from `generator`; in a data-parallel step, this rank's
+    rows of the draws for the global batch (shape[0] rows on every rank)."""
+    rank, size = group_rank_and_size(active_data_group())
+    u = torch.rand((shape[0] * size, *shape[1:]), generator=generator, device=device)
+    return u[rank * shape[0]:(rank + 1) * shape[0]]
+
+
 def drop_connect_mask(batch: int, rate: float, device, generator: torch.Generator | None = None):
     """The keep mask [batch, 1, 1, 1] (bool) of one drop-connect: each sample kept with
     probability 1 - rate, drawn from `generator` (which lives on `device`)."""
-    shape = (batch, 1, 1, 1)
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return _global_rand((batch, 1, 1, 1), generator, device) < 1.0 - rate
 
 
 def drop_connect(x: torch.Tensor, rate: float, keep: torch.Tensor | None) -> torch.Tensor:
@@ -129,6 +143,46 @@ class Embedding(nn.Embedding):
         return super().forward(ids).to(self.compute_dtype or self.weight.dtype)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the data group's global batch, in float32.
+
+    Forward: each rank's count, mean and M2 over N, H, W (ranks may hold different
+    counts) are all-gathered and combined (Chan et al.), so the moments are the
+    global batch's. Backward: dx needs the global sums of dy and dy * x_hat, which
+    are all-reduced; the weight and bias gradients stay local (the gradient
+    all-reduce sums them). Returns (y in x's dtype, mean, biased variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = x.float()
+        n_local = xf.numel() // xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        count = torch.full((1,), float(n_local), device=x.device)
+        parts = all_gather(torch.cat([count, mean, var * n_local])[None], group)
+        counts, means, m2s = parts[:, :1], parts[:, 1:1 + mean.numel()], parts[:, 1 + mean.numel():]
+        n = counts.sum()
+        mean = (counts * means).sum(0) / n
+        var = (m2s.sum(0) + (counts * (means - mean) ** 2).sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean[:, None, None]) * (invstd * weight)[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n, ctx.group = float(n), group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad, _gm, _gv):
+        x, weight, mean, invstd = ctx.saved_tensors
+        g = grad.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        sums = torch.stack([g.sum(dim=(0, 2, 3)), (g * xhat).sum(dim=(0, 2, 3))])
+        dbias, dweight = sums[0].clone(), sums[1].clone()
+        total = psum(sums, ctx.group) / ctx.n
+        dx = (g - total[0][:, None, None] - xhat * total[1][:, None, None]) \
+            * (weight * invstd)[:, None, None]
+        return dx.to(x.dtype), dweight, dbias, None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW computed in float32 and returned in the input dtype, with
     float32 parameters and statistics. Momentum 0.01 is flax's 0.99; eps is passed by
@@ -139,7 +193,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     ra = m * ra + (1 - m) * stat with m = 1 - momentum, the variance biased
     (`F.batch_norm(training=True)` would update it with the unbiased one, n/(n - 1)
     larger). `update_running` False skips the update: the recompute of a
-    rematerialized block must not apply it twice."""
+    rematerialized block must not apply it twice. In a data-parallel step the batch
+    statistics are the global batch's (`_SyncBatchNorm`)."""
 
     update_running: bool = True
 
@@ -148,6 +203,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
+        group = active_data_group()
+        if group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
+            if self.update_running:
+                with torch.no_grad():
+                    keep = 1.0 - self.momentum
+                    self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+                    self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            return y
         # a bf16 input is normalized in float32 inside the kernel (float32 weight)
         # and saved for the backward in bf16
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -221,7 +285,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     the identity in eval or at rate 0."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = _global_rand(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -20,16 +20,23 @@ REFERENCE_METRIC_KEYS = ("auroc", "accuracy", "f1")
 
 
 def save_checkpoint(path: str, trainer, epoch: int, metrics: Dict[str, float],
-                    predictions: Optional[np.ndarray] = None) -> str:
+                    predictions: Optional[np.ndarray] = None,
+                    model_state: Optional[Dict] = None,
+                    optimizer_state: Optional[Dict] = None) -> str:
     """Write the trainer's state to `path`: a temporary file first, then `os.replace`
-    into place, so a reader never sees half a checkpoint."""
+    into place, so a reader never sees half a checkpoint. `model_state` and
+    `optimizer_state` replace the trainer's own state dicts (a tensor-parallel
+    model's, gathered to whole tensors)."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    if model_state is None:
+        model_state = trainer.model.state_dict()
     model = {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
-             for k, v in trainer.model.state_dict().items()}
+             for k, v in model_state.items()}
     payload = {
         "model": model,
-        "optimizer": trainer.optimizer.state_dict(),
+        "optimizer": (trainer.optimizer.state_dict() if optimizer_state is None
+                      else optimizer_state),
         "scheduler": None if trainer.scheduler is None else trainer.scheduler.state_dict(),
         "step": int(trainer.step),
         "epoch": int(epoch),

@@ -8,7 +8,16 @@ loads), and serves the inference, loaded-inference and unpretrained modes.
 Entry points run on CUDA unless `FinetuneConfig.device` names the CPU; without a GPU
 they raise. Each epoch logs its seconds split into host work (loading and
 augmenting the images, `iter_epoch`) and the trainer's steps (`train_batch`,
-`eval_batch`, each ending in a device sync)."""
+`eval_batch`, each ending in a device sync).
+
+Under a process group (one process per GPU, `parallel.multihost.initialize`) the
+loops are data-parallel, as the JAX package's multi-host loops: each rank takes its
+contiguous slice of every epoch (`iter_epoch(host_index, host_count)`, `batch_size`
+rows a rank), the trainer all-reduces the gradients, and the eval predictions are
+gathered and trimmed (`gather_predictions`). `model_parallel` > 1 lays the ranks out
+as a ("data", "model") mesh: the classifier has no tensor-parallel parameter, so
+the model axis replicates the data slices (JAX's plan). Only the first rank writes
+checkpoints, the out-of-fold CSV and the logs."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import pandas as pd
 import torch
+import torch.distributed as dist
 
 from mammodissect_torch import metrics as M
 from mammodissect_torch.configs import save_config
@@ -32,6 +42,13 @@ from mammodissect_torch.models.classifier import (
     frozen_param_labels,
 )
 from mammodissect_torch.models.layers import init_weights
+from mammodissect_torch.parallel.mesh import (
+    data_group,
+    is_master,
+    make_mesh,
+    require_process_group,
+)
+from mammodissect_torch.parallel.multihost import gather_predictions
 from mammodissect_torch.train.checkpoints import load_checkpoint, load_for_eval, save_checkpoint
 from mammodissect_torch.train.data import ClassifierDataset, class_balanced_weights, iter_epoch
 from mammodissect_torch.train.loggers import MasterOnlyWriter, WandbLogger
@@ -135,11 +152,19 @@ def aggregate_patient_level(cfg: FinetuneConfig, folds: pd.DataFrame) -> pd.Data
     return folds
 
 
-def _require_single_device(cfg: FinetuneConfig) -> None:
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel}: the port fine-tunes on one device; "
-            "multi-GPU training is roadmap item 17")
+class _Topology:
+    """The run's ranks: a mesh when model_parallel > 1 (which needs a process group),
+    the data group (None: one process), this rank's data index and the data size."""
+
+    def __init__(self, cfg: FinetuneConfig):
+        self.mesh = make_mesh(cfg.model_parallel) if cfg.model_parallel > 1 else None
+        self.group = data_group(self.mesh)
+        self.index = dist.get_rank(self.group) if self.group is not None else 0
+        self.count = dist.get_world_size(self.group) if self.group is not None else 1
+
+    def barrier(self):
+        if dist.is_initialized():
+            dist.barrier()
 
 
 def build_model(cfg: FinetuneConfig) -> BreastClipClassifierModule:
@@ -167,17 +192,16 @@ def warmup_steps_of(cfg: FinetuneConfig, steps_per_epoch: int) -> int:
     return 10
 
 
-def _make_trainer(cfg: FinetuneConfig, model, optimizer, scheduler, device,
+def _make_trainer(cfg: FinetuneConfig, model, optimizer, scheduler, device, topo: _Topology,
                   pos_weight: Optional[float] = None) -> Trainer:
     return Trainer(model, optimizer, scheduler, loss_kind="ce" if cfg.multiclass else "bce",
                    pos_weight=pos_weight, seed=cfg.seed, input_wire=cfg.input_wire,
-                   norm_mean=cfg.mean, norm_std=cfg.std, device=device)
+                   norm_mean=cfg.mean, norm_std=cfg.std, device=device, mesh=topo.mesh)
 
 
 def _prepare(cfg: FinetuneConfig) -> torch.device:
     """The run's device (raises without a GPU unless cfg.device names the CPU), with
     TF32 off for float32 runs, as in every entry point of the port."""
-    _require_single_device(cfg)
     device = resolve_device(cfg.device)
     if device.type == "cuda":
         set_fp32_policy()
@@ -236,17 +260,21 @@ class _Clock:
             self.seconds[kind] += time.perf_counter() - t0
 
 
-def _run_eval(trainer: Trainer, dataset, batch_size: int, label_dtype, clock: _Clock):
-    """Eval pass: (mean loss over the real rows, predictions trimmed to the dataset)."""
+def _run_eval(trainer: Trainer, dataset, batch_size: int, label_dtype, clock: _Clock,
+              topo: _Topology):
+    """Eval pass: (mean loss over this rank's real rows, predictions trimmed to the
+    dataset); each rank scores its slice and the predictions are gathered."""
     losses = AverageMeter()
     preds = []
     for batch in clock.batches(iter_epoch(dataset, batch_size, shuffle=False,
-                                          label_dtype=label_dtype)):
+                                          label_dtype=label_dtype, host_index=topo.index,
+                                          host_count=topo.count)):
         loss, p = clock.run("eval_batch", trainer.eval_batch, batch.images, batch.labels,
                             batch.n_valid)
         losses.update(loss, batch.n_valid)
         preds.append(p[: batch.n_valid])
-    return losses.avg, (np.concatenate(preds) if preds else np.zeros(0))
+    local = np.concatenate(preds) if preds else np.zeros(0, np.float32)
+    return losses.avg, gather_predictions(local, len(dataset), topo.group)
 
 
 def checkpoint_path(cfg: FinetuneConfig) -> str:
@@ -261,6 +289,7 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
     """`experiments.py:97-310`: train with validation each epoch, keep the best
     checkpoint; returns the valid folds with the best epoch's predictions."""
     device = _prepare(cfg)
+    topo = _Topology(cfg)
     seed_all(cfg.seed)
     model = build_model(cfg).to(device)
 
@@ -273,8 +302,9 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
 
     train_ds, valid_ds = mk_ds(train_folds, True), mk_ds(valid_folds, False)
     # ceil: iter_epoch yields the padded tail batch, and an undercounted total would
-    # park the cosine tail at the terminal lr
-    steps_per_epoch = max(-(-len(train_ds) // cfg.batch_size), 1)
+    # park the cosine tail at the terminal lr; each rank steps through its slice
+    shard_len = -(-len(train_ds) // topo.count)
+    steps_per_epoch = max(-(-shard_len // cfg.batch_size), 1)
     warmup_steps = warmup_steps_of(cfg, steps_per_epoch)
     labels = frozen_param_labels(model, arch_is_linear_probe(cfg.arch))
     optimizer, scheduler = make_optimizer(model, cfg.lr, cfg.weight_decay, warmup_steps,
@@ -283,7 +313,7 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
     pos_weight = None
     if cfg.weighted_BCE == "y" and not cfg.multiclass:
         pos_weight = float(cfg.BCE_weights.get(f"fold{cfg.cur_fold}", 1.0))
-    trainer = _make_trainer(cfg, model, optimizer, scheduler, device, pos_weight)
+    trainer = _make_trainer(cfg, model, optimizer, scheduler, device, topo, pos_weight)
     start_epoch = 0
     if cfg.resume_from:
         ckpt = load_checkpoint(cfg.resume_from)
@@ -294,6 +324,7 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
     tb = MasterOnlyWriter(os.path.join(cfg.tensorboard_path, f"fold{cfg.cur_fold}"))
     wb = WandbLogger("MammoCLIP_classifier_finetune", config=dataclasses.asdict(cfg),
                      enabled=cfg.wandb)
+    master = is_master()
     balanced = None
     if cfg.balanced_dataloader == "y":
         balanced = class_balanced_weights(train_folds[cfg.label].values.astype(np.int64),
@@ -316,7 +347,8 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
         losses = AverageMeter()
         for batch in clock.batches(iter_epoch(train_ds, cfg.batch_size, shuffle=True,
                                               seed=cfg.seed + epoch, balanced_weights=balanced,
-                                              label_dtype=label_dtype)):
+                                              label_dtype=label_dtype, host_index=topo.index,
+                                              host_count=topo.count)):
             loss = clock.run("train_batch", trainer.train_batch, batch.images, batch.labels,
                              batch.n_valid)
             losses.update(loss, batch.n_valid)
@@ -327,7 +359,8 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
                 log(f"epoch {epoch} step {step} loss {loss:.4f} "
                     f"{timeSince(start, (epoch + 1) / cfg.epochs)}{_mem_postfix(device)}")
 
-        val_loss, predictions = _run_eval(trainer, valid_ds, cfg.batch_size, label_dtype, clock)
+        val_loss, predictions = _run_eval(trainer, valid_ds, cfg.batch_size, label_dtype, clock,
+                                          topo)
         metrics = _epoch_metrics(cfg, valid_folds, predictions)
         tb.add_scalar("train/epoch", losses.avg, epoch + 1)
         tb.add_scalar("valid/iter_loss", val_loss, epoch + 1)
@@ -338,7 +371,7 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
             # eval-mode pass over the train folds (the reference's train_eval_loader,
             # `experiments.py:200-217,229-230,256`)
             _, tr_predictions = _run_eval(trainer, mk_ds(train_folds, False), cfg.batch_size,
-                                          label_dtype, clock)
+                                          label_dtype, clock, topo)
             train_metrics = {f"train_{k}": v for k, v in
                              _epoch_metrics(cfg, train_folds, tr_predictions).items()}
         wb.log({"epoch": epoch + 1, "train_loss": losses.avg, "valid_loss": val_loss,
@@ -347,7 +380,8 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
         watch = metrics.get("accuracy", metrics.get("auroc", 0.0))
         if not np.isnan(watch) and watch > best_metric:
             best_metric = watch
-            save_checkpoint(ckpt_path, trainer, epoch, metrics, predictions)
+            if master:
+                save_checkpoint(ckpt_path, trainer, epoch, metrics, predictions)
             log(f"epoch {epoch + 1}: new best {watch:.4f} -> {ckpt_path}")
         log(f"epoch {epoch + 1}: train {losses.avg:.4f} valid {val_loss:.4f} "
             f"{metrics} {train_metrics}")
@@ -357,6 +391,7 @@ def train_loop(cfg: FinetuneConfig, train_folds: pd.DataFrame, valid_folds: pd.D
 
     tb.close()
     wb.finish()
+    topo.barrier()  # the first rank's best checkpoint is written before any rank reads it
     valid_folds = valid_folds.copy()
     if os.path.exists(ckpt_path):
         best = load_for_eval(ckpt_path)
@@ -369,17 +404,18 @@ def inference_loop(cfg: FinetuneConfig, valid_folds: pd.DataFrame, log=print) ->
     """Rebuild the classifier from the fine-tuned checkpoint and rerun validation
     (`single_gpu_experiments.py:296-372`)."""
     device = _prepare(cfg)
+    topo = _Topology(cfg)
     model = build_model(cfg)
     if cfg.finetuned_ckpt_path:
         model.load_state_dict(load_for_eval(cfg.finetuned_ckpt_path)["model"])
     model.to(device)
     optimizer, scheduler = make_optimizer(model, cfg.lr, cfg.weight_decay, 1, 10)
-    trainer = _make_trainer(cfg, model, optimizer, scheduler, device)
+    trainer = _make_trainer(cfg, model, optimizer, scheduler, device, topo)
     ds = ClassifierDataset(valid_folds, image_col=cfg.image_col, label_col=cfg.label,
                            root=cfg.data_dir, size_hw=tuple(cfg.img_size), mean=cfg.mean,
                            std=cfg.std, train=False, wire=cfg.input_wire)
     label_dtype = np.int32 if cfg.multiclass else np.float32
-    _, predictions = _run_eval(trainer, ds, cfg.batch_size, label_dtype, _Clock())
+    _, predictions = _run_eval(trainer, ds, cfg.batch_size, label_dtype, _Clock(), topo)
     metrics = _epoch_metrics(cfg, valid_folds, predictions)
     log(f"[inference] {metrics}")
     out = valid_folds.copy()
@@ -400,12 +436,13 @@ def loaded_inference_loop(cfg: FinetuneConfig, valid_folds: pd.DataFrame, log=pr
         out["pred_binary"] = (out["prediction"] >= th).astype(int)
         fp = out[(out["pred_binary"] == 1) & (out[cfg.label] == 0)]
         fn = out[(out["pred_binary"] == 0) & (out[cfg.label] == 1)]
+        metrics["optimal_threshold"] = th
+    if not cfg.multiclass and is_master():
         os.makedirs(cfg.output_path, exist_ok=True)
         fp.to_csv(os.path.join(cfg.output_path, f"fold{cfg.cur_fold}_false_positives.csv"),
                   index=False)
         fn.to_csv(os.path.join(cfg.output_path, f"fold{cfg.cur_fold}_false_negatives.csv"),
                   index=False)
-        metrics["optimal_threshold"] = th
     log(f"[loaded_inference] {metrics}")
     return out, metrics
 
@@ -413,10 +450,14 @@ def loaded_inference_loop(cfg: FinetuneConfig, valid_folds: pd.DataFrame, log=pr
 def do_experiments(cfg: FinetuneConfig, log=print) -> pd.DataFrame:
     """`do_experiments(args, device)` (`experiments.py:23-94`): every fold, then the
     out-of-fold predictions CSV and CV AUROC."""
-    _prepare(cfg)  # refuse a missing GPU or several devices before writing anything
+    _prepare(cfg)  # refuse a missing GPU before writing anything
+    if cfg.model_parallel > 1:
+        require_process_group(f"model_parallel={cfg.model_parallel}")
+    master = is_master()
     os.makedirs(cfg.output_path, exist_ok=True)
     # run metadata beside the outputs (`lumi_single_gpu_train_classifier.py:153`)
-    save_config(cfg, os.path.join(cfg.output_path, "run_config.json"))
+    if master:
+        save_config(cfg, os.path.join(cfg.output_path, "run_config.json"))
     df = pd.read_csv(cfg.csv_file)
     oof = []
     for fold in range(max(cfg.n_folds, 1)):
@@ -438,5 +479,6 @@ def do_experiments(cfg: FinetuneConfig, log=print) -> pd.DataFrame:
     if not cfg.multiclass and "prediction" in oof_df.columns:
         agg = aggregate_patient_level(cfg, oof_df)
         log(f"[cv] auroc={M.auroc(agg[cfg.label].values, agg['prediction'].values):.4f}")
-        oof_df.to_csv(os.path.join(cfg.output_path, "oof_predictions.csv"), index=False)
+        if master:
+            oof_df.to_csv(os.path.join(cfg.output_path, "oof_predictions.csv"), index=False)
     return oof_df

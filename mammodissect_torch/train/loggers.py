@@ -1,11 +1,14 @@
 """TensorBoard and wandb logging (counterpart of `mammodissect/train/loggers.py`).
 
-The port runs one process, so it is always the reference's master rank
-(`util/dist_summery_writer.py:6-31`). Each logger is a no-op when its package
-(`tensorboard`, `wandb`) is missing or fails to start."""
+Both write from the first rank only, as the reference's `DistSummaryWriter`
+(`util/dist_summery_writer.py:6-31`) and its rank-0 wandb runs; every other rank,
+and a logger whose package (`tensorboard`, `wandb`) is missing or fails to start,
+is a no-op."""
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+from mammodissect_torch.parallel.mesh import is_master
 
 
 class MasterOnlyWriter:
@@ -13,6 +16,8 @@ class MasterOnlyWriter:
 
     def __init__(self, log_dir: str):
         self._writer = None
+        if not is_master():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -30,17 +35,20 @@ class MasterOnlyWriter:
 
 
 class WandbLogger:
-    """An offline wandb run (the reference's project 'MammoCLIP_classifier_finetune');
-    disabled when wandb is missing or its offline init fails."""
+    """An offline wandb run (the reference's projects 'MammoCLIP_classifier_finetune'
+    and 'broader_clip-dissect'); disabled when wandb is missing or its offline init
+    fails."""
 
-    def __init__(self, project: str, config: Optional[dict] = None, enabled: bool = False):
+    def __init__(self, project: str, config: Optional[dict] = None, enabled: bool = False,
+                 name: Optional[str] = None):
         self._run = None
-        if not enabled:
+        if not enabled or not is_master():
             return
         try:
             import wandb
 
-            self._run = wandb.init(project=project, config=config or {}, mode="offline")
+            self._run = wandb.init(project=project, name=name, config=config or {},
+                                   mode="offline")
         except Exception:  # wandb missing or its offline init failed: log nothing
             self._run = None
 

@@ -2,14 +2,22 @@
 `mammodissect/train/pretrain.py`; the loss config {label_smoothing, i2i_weight 1.0,
 t2t_weight 0.5} of `concept_vit/utils.py:443`).
 
-One device: bf16 compute over float32 master weights (`dtype`), AdamW with the
-per-step warmup-cosine schedule, the dataset's wire (`f32`, or `u8` normalized on
-the device). Checkpoints are `.pth` files (where JAX writes orbax directories)
-holding the model, the optimizer, the scheduler and the step: `step_{n}.pth` every
+bf16 compute over float32 master weights (`dtype`), AdamW with the per-step
+warmup-cosine schedule, the dataset's wire (`f32`, or `u8` normalized on the
+device). Checkpoints are `.pth` files (where JAX writes orbax directories) holding
+the model, the optimizer, the scheduler and the step: `step_{n}.pth` every
 `ckpt_freq_steps` and `final.pth` at the end. The model's state dict keeps the
 reference's names, so `convert.load_breastclip_checkpoint` reads `final.pth` as a
-Mammo-CLIP dissector (`get_dissector("breastclip", ckpt_path=...)`). Data
-parallelism (`model_parallel` > 1 or several processes) is roadmap item 17."""
+Mammo-CLIP dissector (`get_dissector("breastclip", ckpt_path=...)`).
+
+Under a process group (one process per GPU, `parallel.multihost.initialize`) the
+ranks form a ("data", "model") mesh of `model_parallel` columns: BERT and the
+projection heads are split over "model" (`apply_tensor_parallel`), the global
+contrastive batch of `batch_size` rows over "data" (each data index materializes
+its slice, `ImageTextDataset.batches(host_index, host_count)`). `model_parallel` > 1
+needs the process group. Only the first rank writes checkpoints and logs; a
+tensor-parallel checkpoint holds the gathered whole tensors, so `final.pth` loads
+as the single-GPU dissector."""
 from __future__ import annotations
 
 import math
@@ -23,6 +31,12 @@ import torch
 from mammodissect_torch.device import resolve_device, resolve_dtype
 from mammodissect_torch.models.breastclip import BreastClip, default_model_config
 from mammodissect_torch.models.tokenizers import WordPieceTokenizer
+from mammodissect_torch.parallel.mesh import data_group, is_master, make_mesh
+from mammodissect_torch.parallel.sharding import (
+    apply_tensor_parallel,
+    full_optimizer_state,
+    full_state_dict,
+)
 from mammodissect_torch.train.checkpoints import save_checkpoint
 from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
 from mammodissect_torch.train.loggers import MasterOnlyWriter
@@ -74,15 +88,20 @@ def build_clip(cfg: PretrainConfig, tokenizer, device: torch.device) -> BreastCl
 def pretrain(cfg: PretrainConfig, dataset, log=print) -> Dict:
     """Contrastive pretraining over an ImageTextDataset: {"steps", "final_checkpoint",
     "last_loss"} (NaN when the dataset holds fewer rows than a batch: no step)."""
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel}: the port pretrains on one device; "
-            "multi-GPU training is roadmap item 17")
     device = resolve_device(cfg.device)
+    mesh = None
+    if cfg.model_parallel > 1 or torch.distributed.is_initialized():
+        mesh = make_mesh(cfg.model_parallel)  # raises without a process group
+    group = data_group(mesh)
+    hi, hc = ((torch.distributed.get_rank(group), torch.distributed.get_world_size(group))
+              if group is not None else (0, 1))
     seed_all(cfg.seed)
     tok = (WordPieceTokenizer(vocab_file=cfg.vocab_file) if cfg.vocab_file
            else WordPieceTokenizer.toy())
     model = build_clip(cfg, tok, device).module
+    tensor_parallel = cfg.model_parallel > 1
+    if tensor_parallel:
+        apply_tensor_parallel(model, mesh)
 
     steps_per_epoch = max(len(dataset) // cfg.batch_size, 1)
     total_steps = steps_per_epoch * cfg.epochs
@@ -95,15 +114,24 @@ def pretrain(cfg: PretrainConfig, dataset, log=print) -> Dict:
         # the step normalizes on the device with the dataset's own constants
         input_wire=getattr(dataset, "wire", "f32"), norm_mean=getattr(dataset, "mean", 0.0),
         norm_std=getattr(dataset, "std", 1.0),
-        generator=torch.Generator(device=device).manual_seed(cfg.seed))
+        generator=torch.Generator(device=device).manual_seed(cfg.seed), mesh=mesh)
 
     tb = MasterOnlyWriter(cfg.tensorboard_path)
     os.makedirs(cfg.checkpoints, exist_ok=True)
     state = types.SimpleNamespace(model=model, optimizer=optimizer, scheduler=scheduler, step=0)
+
+    def save(name, epoch):
+        # a collective under tensor parallelism: every rank gathers, the first writes
+        whole = ({"model_state": full_state_dict(model),
+                  "optimizer_state": full_optimizer_state(optimizer, model)}
+                 if tensor_parallel else {})
+        path = os.path.join(cfg.checkpoints, name)
+        return save_checkpoint(path, state, epoch, {}, **whole) if is_master() else path
+
     loss = torch.tensor(math.nan)  # len(dataset) < batch_size gives no batch (drop_last)
     for epoch in range(cfg.epochs):
         for batch in dataset.batches(tok, cfg.batch_size, max_length=cfg.text_max_length,
-                                     seed=cfg.seed + epoch):
+                                     seed=cfg.seed + epoch, host_index=hi, host_count=hc):
             loss = step_fn(batch_to_device(batch, device))
             state.step += 1
             if state.step % cfg.log_freq == 0:
@@ -111,8 +139,7 @@ def pretrain(cfg: PretrainConfig, dataset, log=print) -> Dict:
                 tb.add_scalar("pretrain/loss", lv, state.step)
                 log(f"epoch {epoch} step {state.step}/{total_steps} loss {lv:.4f}")
             if state.step % cfg.ckpt_freq_steps == 0:
-                save_checkpoint(os.path.join(cfg.checkpoints, f"step_{state.step}.pth"), state,
-                                epoch, {})
-    final = save_checkpoint(os.path.join(cfg.checkpoints, "final.pth"), state, cfg.epochs, {})
+                save(f"step_{state.step}.pth", epoch)
+    final = save("final.pth", cfg.epochs)
     tb.close()
     return {"steps": state.step, "final_checkpoint": final, "last_loss": float(loss)}

@@ -14,7 +14,14 @@ trainer:
   `non_blocking`, and `ops.normalize.u8_minmax_meanstd` normalizes them there.
 - drop-connect masks come from the trainer's own torch.Generator on the device,
   seeded from `seed`.
-Single device only: data parallelism across GPUs is roadmap item 17."""
+- data parallelism (a process group, one process per GPU): the model is wrapped in
+  DistributedDataParallel over the data group, whose gradient all-reduce is the one
+  XLA inserts for JAX's mesh, with `broadcast_buffers` off (the synced training
+  BatchNorm keeps the running statistics equal). Each rank holds its slice of the
+  global batch; the step runs inside `parallel.mesh.data_parallel`, so BatchNorm
+  takes the global batch's moments and the drop-connect masks are drawn for the
+  global batch and sliced by rank, and the padded tail's row weights count over
+  the global batch: a step equals the single-process step on the global batch."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -24,6 +31,8 @@ import torch
 
 from mammodissect_torch.device import resolve_device
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
+from mammodissect_torch.parallel.collectives import psum
+from mammodissect_torch.parallel.mesh import data_group, data_parallel
 from mammodissect_torch.train.losses import bce_with_logits, softmax_cross_entropy
 from mammodissect_torch.train.schedule import (
     linear_warmup_cosine_annealing,
@@ -66,12 +75,14 @@ class Trainer:
 
     loss_kind "bce" (pos_weight optional) or "ce"; input_wire "f32" (batches arrive
     normalized) or "u8" (normalized on the device with norm_mean/norm_std). `device`
-    None is CUDA, which raises without a GPU."""
+    None is CUDA, which raises without a GPU. Under a process group the trainer is
+    data-parallel over `mesh`'s data axis (None: every rank); each rank passes its
+    slice of the global batch."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  scheduler=None, loss_kind: str = "bce", pos_weight: Optional[float] = None,
                  seed: int = 0, input_wire: str = "f32", norm_mean: float = 0.0,
-                 norm_std: float = 1.0, device=None):
+                 norm_std: float = 1.0, device=None, mesh=None):
         if input_wire not in ("f32", "u8"):
             raise ValueError(f"input_wire must be 'f32' or 'u8', got {input_wire!r}")
         if loss_kind not in ("bce", "ce"):
@@ -86,6 +97,13 @@ class Trainer:
         self.norm_mean, self.norm_std = float(norm_mean), float(norm_std)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
+        self.group = data_group(mesh)
+        self.net = self.model
+        if self.group is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self.net = DistributedDataParallel(self.model, process_group=self.group,
+                                               broadcast_buffers=False)
 
     def _loss(self, logits, labels, weights):
         if self.loss_kind == "ce":
@@ -113,9 +131,20 @@ class Trainer:
         weighted 0 in the loss. Returns the loss."""
         self.model.train()
         x, y, w = self._to_device(images, labels, n_valid)
-        loss = self._loss(self.model(x, generator=self.generator), y, w)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        # the backward inside too: a rematerialized block's recompute is part of the step
+        with data_parallel(self.group):
+            loss = self._loss(self.net(x, generator=self.generator), y, w)
+            if self.group is not None:
+                # this rank's share of the global weighted mean, times the ranks:
+                # DDP averages the gradients over them
+                w_global = psum(w.sum(), self.group)
+                loss = loss * (w.sum() / w_global.clamp_min(1e-12))
+                size = torch.distributed.get_world_size(self.group)
+                (loss * size).backward()
+                loss = psum(loss.detach(), self.group)
+            else:
+                loss.backward()
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
@@ -126,7 +155,8 @@ class Trainer:
     def eval_batch(self, images: np.ndarray, labels: np.ndarray,
                    n_valid: Optional[int] = None) -> Tuple[float, np.ndarray]:
         """(loss, predictions [B]) in eval mode: the sigmoid of the first logit (BCE)
-        or the argmax class (CE)."""
+        or the argmax class (CE); under a process group, this rank's rows and loss
+        (the caller gathers the predictions, `parallel.multihost.gather_predictions`)."""
         self.model.eval()
         x, y, w = self._to_device(images, labels, n_valid)
         logits = self.model(x)

@@ -443,3 +443,75 @@ def test_pretrain_step_cuda_matches_cpu(cuda):
             total += v.numel()
             assert float(err.max()) <= 6e-3, k
     assert outside <= 1e-4 * total, outside
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """A one-rank NCCL process group (world size 1) for the test, torn down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def test_synced_batchnorm_on_one_nccl_rank_equals_batchnorm(nccl_rank):
+    """The data-parallel training BatchNorm through NCCL's collectives at world size 1,
+    for a float32 and a bf16 input, against BatchNorm in float64 on the same (rounded)
+    input and output gradient: the output and the input gradient (within 1e-5 of the
+    largest entry in float32; one bf16 rounding, 2**-8, in bf16), the weight and bias
+    gradients and flax's running statistics (float32: 1e-5). In float32 the local
+    BatchNorm gives the same within 1e-5; in bf16 cuDNN's own backward rounds
+    otherwise, so only the float64 reference holds it."""
+    from mammodissect_torch.models.layers import BatchNorm2d
+    from mammodissect_torch.parallel.mesh import data_parallel
+
+    x = torch.randn(4, 24, 9, 7, generator=torch.Generator().manual_seed(1)) * 3 + 1
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    w = torch.empty(24).uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        xr, gr = x.to(dtype).double().requires_grad_(True), g.to(dtype).double()
+        mean, var = xr.mean((0, 2, 3)), xr.var((0, 2, 3), unbiased=False)
+        y = (xr - mean[:, None, None]) / torch.sqrt(var + 1e-3)[:, None, None] * w.double()[:, None, None]
+        (y * gr).sum().backward()
+        xhat = (y / w.double()[:, None, None]).detach()
+        want = (y.detach(), xr.grad, (gr * xhat).sum((0, 2, 3)), gr.sum((0, 2, 3)),
+                0.01 * mean.detach(), 0.99 + 0.01 * var.detach())
+        runs = {}
+        for name, group in (("local", None), ("synced", nccl_rank)):
+            bn = BatchNorm2d(24, eps=1e-3, momentum=0.01).cuda().train()
+            with torch.no_grad():
+                bn.weight.copy_(w)
+            xi = x.cuda().to(dtype).clone().requires_grad_(True)
+            with data_parallel(group):
+                out = bn(xi)
+            (out.float() * g.cuda()).sum().backward()
+            runs[name] = (out, xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                          bn.running_var)
+        for i, (ref, got, local) in enumerate(zip(want, runs["synced"], runs["local"])):
+            tol = 2 ** -8 if dtype == torch.bfloat16 and i < 2 else 1e-5
+            scale = float(ref.abs().max())
+            torch.testing.assert_close(got.double().cpu(), ref, rtol=tol, atol=tol * scale)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, local, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_all_gather_with_grad_on_one_nccl_rank(nccl_rank):
+    """At world size 1 the gather is the tensor and its backward the gradient."""
+    from mammodissect_torch.parallel.collectives import all_gather_with_grad, psum
+    from mammodissect_torch.parallel.multihost import gather_predictions
+
+    x = torch.randn(3, 5, device="cuda", requires_grad=True)
+    y = all_gather_with_grad(x, nccl_rank)
+    w = torch.randn(3, 5, device="cuda")
+    (y * w).sum().backward()
+    assert torch.equal(y, x) and torch.equal(x.grad, w)
+    assert torch.equal(psum(w, nccl_rank), w)
+    np.testing.assert_array_equal(gather_predictions(np.arange(4.0), 3), np.arange(3.0))

@@ -391,11 +391,18 @@ def test_forward_outputs_and_config_keys():
 
 
 def test_mesh_and_tensor_parallel_name_item_17():
+    """Without a process group the step is a single process's, and a mesh (data or
+    tensor parallelism) raises, saying to launch with torchrun; under one, both train
+    (tests/test_torch_parallel.py)."""
+    from mammodissect_torch.parallel.mesh import make_mesh
+
     model = BreastClipModule(vocab_size=64, **NARROW)
     optimizer, _ = make_optimizer(model, 1e-3, 0.0, 0, 10)
-    for kw in ({"mesh": object()}, {"tensor_parallel": True}):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            make_clip_train_step(model, optimizer, **kw)
+    step = make_clip_train_step(model, optimizer)
+    assert callable(step) and not torch.distributed.is_initialized()
+    for model_parallel in (1, 2):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            make_mesh(model_parallel=model_parallel)
 
 
 # ---------------------------------------------------------------------- the datasets
@@ -642,5 +649,5 @@ def test_pretrain_cli_on_the_cpu_writes_a_dissector(multiview, tmp_path):
     assert len(logs) == 1 and logs[0].startswith("epoch 0 step 2/2 loss ")
     res, _ = run(3, "ck0")
     assert res["steps"] == 0 and np.isnan(res["last_loss"])
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         main(argv[:-2] + ["--model-parallel", "2", "--device", "cpu"])
