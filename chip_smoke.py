@@ -17,7 +17,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
   5. times: each kernel (kernel 1 through its wrapper, as the first version was
      timed, and its launch alone), its plain version and its bound (the least time
      an H100 SXM could take for the same work: 3.35 TB/s, 989 TFLOP/s bf16 tensor,
-     67 TFLOP/s fp32);
+     495 TFLOP/s tf32 tensor (kernel 2's fp32 expand: three tf32 products), 67
+     TFLOP/s fp32);
   6. the main path: `run_dissection` resident at full width (B5 at 1520x912, all 39
      blocks, 12-layer BERT, the 762 concepts, soft-WPMI, bf16 tower) on random
      weights from a seed and mammogram-shaped synthetic images; the kernels' launch
@@ -30,7 +31,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      BERT, seed 0), 762 concepts, soft-WPMI, 512 images; kernel 2 launches 32 times a
      batch in the target's fp32 harvest and 32 in the dissector's bf16 embed, kernel 1
      in the staged scoring. A second run must find every cache file and skip both
-     harvests. Also kernel 2's fp32 time at each B5 shape at batch 16, with its bound;
+     harvests. Also kernel 2's fp32 time at each B5 shape at batch 16, beside the
+     CUDA-core design's and both bounds (3xTF32 and the fp32 FMAs);
   9. the packed uint8 wire: a 16-image batch packed by the native packer and
      unpacked on the card must equal the batch; the resident main path on 256 images
      with the packed and the plain wire (in turns: plain, packed, packed, plain) must
@@ -113,7 +115,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      scaling.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
-and fails when kernel 1 or a bf16 instantiation of kernel 2 spills. Prints the
+and fails when any instantiation of either kernel spills. Prints the
 card's name and power limit and a JSON line {"kernels": [...]} before the last
 line; the last line is {"ok": true, "device": {...}}. Imports torch and the port
 only."""
@@ -136,6 +138,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 MAIN_N = 1024          # probe images of the main path
@@ -146,20 +149,24 @@ IMAGE_HW = (1520, 912)
 POOL = 64              # unique synthetic mammograms, repeated cyclically
 CONCEPTS = os.path.join(ROOT, "mammodissect", "assets", "concepts",
                         "Specific_concepts_sorted.txt")
-# (k, H, W, Cin, Cexp, number of B5 blocks of this shape, the first version's ms)
-# at 1520x912; the last column is the first CUDA version's time per launch at batch
-# 16, bf16 (PERF.md, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+# (k, H, W, Cin, Cexp, number of B5 blocks of this shape, the first version's ms,
+# the CUDA-core fp32 design's ms) at 1520x912; the last two columns are times per
+# launch at batch 16 on NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside this
+# run's: the first CUDA version's in bf16, and the fp32 instantiation's before its
+# 3xTF32 redesign (the mean of two runs)
 B5_SHAPES = [
-    (3, 380, 228, 40, 240, 4, 6.163),      # blocks 4-7
-    (5, 190, 114, 64, 384, 4, 2.999),      # 9-12
-    (3, 95, 57, 128, 768, 6, 2.153),       # 14-19
-    (5, 95, 57, 128, 768, 1, 2.474),       # 20
-    (5, 95, 57, 176, 1056, 6, 4.818),      # 21-26
-    (5, 48, 29, 304, 1824, 8, 3.217),      # 28-35
-    (3, 48, 29, 304, 1824, 1, 2.840),      # 36
-    (3, 48, 29, 512, 3072, 2, 7.223),      # 37-38
+    (3, 380, 228, 40, 240, 4, 6.163, 6.6845),     # blocks 4-7
+    (5, 190, 114, 64, 384, 4, 2.999, 2.9017),     # 9-12
+    (3, 95, 57, 128, 768, 6, 2.153, 2.0454),      # 14-19
+    (5, 95, 57, 128, 768, 1, 2.474, 2.4081),      # 20
+    (5, 95, 57, 176, 1056, 6, 4.818, 4.7151),     # 21-26
+    (5, 48, 29, 304, 1824, 8, 3.217, 3.1753),     # 28-35
+    (3, 48, 29, 304, 1824, 1, 2.840, 2.7580),     # 36
+    (3, 48, 29, 512, 3072, 2, 7.223, 6.9318),     # 37-38
 ]
 FIRST_VERSION_MS = {"wpmi": 0.923, "mbconv_forward": 124.0}  # same source and card
+# one B5 forward's 32 fp32 launches at batch 16 before the 3xTF32 redesign (PERF.md)
+FP32_CUDA_CORE_FORWARD_MS = 123.3
 FT_BATCH = 8           # the fine-tune CLI's default batch
 FT_TIMED_STEPS = 10
 FT_POS_WEIGHT = 15.573306370070778  # VinDr Mass (cli.finetune.DEFAULT_BCE_WEIGHTS)
@@ -281,8 +288,8 @@ def kernel_label(function):
 
 
 def phase_build():
-    """Both kernels built from csrc/ with -Xptxas=-v; fails when a bf16 instantiation
-    of kernel 2 or kernel 1 spills registers."""
+    """Both kernels built from csrc/ with -Xptxas=-v; fails when any instantiation of
+    either kernel spills registers."""
     from mammodissect_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -298,9 +305,8 @@ def phase_build():
                 f"{row.get('static_smem')} bytes static smem, {row.get('stack_frame')} bytes "
                 f"stack frame, {row.get('spill_stores')} bytes spill stores, "
                 f"{row.get('spill_loads')} bytes spill loads")
-            if "fp32" not in row["kernel"]:
-                check(row.get("spill_stores") == 0 and row.get("spill_loads") == 0,
-                      f"{row['kernel']} spills registers: {row}")
+            check(row.get("spill_stores") == 0 and row.get("spill_loads") == 0,
+                  f"{row['kernel']} spills registers: {row}")
     missing = set(KERNEL_LABELS) - seen
     check(not missing, f"no ptxas figures for {sorted(missing)}")
     return seconds
@@ -376,9 +382,13 @@ def phase_wpmi(n_images, device):
 
 def mbconv_bound(b, h, w, cin, cexp, k, dtype):
     """Kernel 2's bound (phases 5, 8 and 13): each input read once and the
-    output written once at 3.35 TB/s, or the operations: bf16, the expand at 989
-    TFLOP/s on the tensor cores beside the depthwise at 67 TFLOP/s fp32; fp32 (TF32
-    off), both at 67 TFLOP/s; whichever is longer."""
+    output written once at 3.35 TB/s, or the operations, whichever is longer. The
+    operations: bf16, the expand at 989 TFLOP/s on the tensor cores beside the
+    depthwise at 67 TFLOP/s fp32; fp32, the expand as 3xTF32 (three tf32 products)
+    at 495/3 TFLOP/s on the tensor cores beside the depthwise at 67 TFLOP/s. fp32
+    also gets `fma_bound_ms`, both on the fp32 FMAs at 67 TFLOP/s (the bound of the
+    CUDA-core design before the 3xTF32 one, kept so that earlier ratios still read).
+    `fma_bound_ms` goes to the printed lines only, not into the kernels line."""
     import torch
 
     bf16 = dtype == torch.bfloat16
@@ -388,8 +398,11 @@ def mbconv_bound(b, h, w, cin, cexp, k, dtype):
                + 4 * cexp * 4) / HBM_BYTES_PER_S * 1e3
     expand, dw = 2 * pix * cin * cexp, 2 * k * k * pix * cexp
     t_ops = (max(expand / BF16_TENSOR_FLOPS, dw / FP32_FLOPS) if bf16
-             else (expand + dw) / FP32_FLOPS) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+             else max(3 * expand / TF32_TENSOR_FLOPS, dw / FP32_FLOPS)) * 1e3
+    row = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if not bf16:
+        row["fma_bound_ms"] = max(t_bytes, (expand + dw) / FP32_FLOPS * 1e3)
+    return row
 
 
 def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=False):
@@ -435,7 +448,7 @@ def phase_mbconv(device):
     from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 
     rows = []
-    for i, (k, h, w, cin, cexp, n_blocks, first_ms) in enumerate(B5_SHAPES):
+    for i, (k, h, w, cin, cexp, n_blocks, first_ms, _) in enumerate(B5_SHAPES):
         row = {"k": k, "H": h, "W": w, "Cin": cin, "Cexp": cexp, "blocks": n_blocks}
         for name, dtype, b, (atol, rtol) in (
                 ("bf16", torch.bfloat16, MAIN_BATCH, (2e-3, 2e-2)),
@@ -538,16 +551,25 @@ def csv_similarities(df):
     return np.array([json.loads(s) if isinstance(s, str) else s for s in df["similarity"]])
 
 
+def fma_forward_ms(rows):
+    """One forward's fp32-FMA bound (`mbconv_bound`) over kernel 2's rows, for the
+    printed lines."""
+    import torch
+
+    return sum(mbconv_bound(MAIN_BATCH, r["H"], r["W"], r["Cin"], r["Cexp"], r["k"],
+                            torch.float32)["fma_bound_ms"] * r["blocks"] for r in rows)
+
+
 def fp32_mbconv_rows(device):
     """Kernel 2's fp32 instantiation (the classifier target's) at each B5 shape at
-    batch 16: ms, plain ms, max abs err and the bound (bytes at 3.35 TB/s or the
-    expand and depthwise operations at 67 TFLOP/s fp32, TF32 being off)."""
+    batch 16: ms, plain ms, max abs err and the 3xTF32 bound; the printed line adds
+    the CUDA-core design's ms and the fp32-FMA bound."""
     import torch
 
     from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 
     rows = []
-    for i, (k, h, w, cin, cexp, n_blocks, _) in enumerate(B5_SHAPES):
+    for i, (k, h, w, cin, cexp, n_blocks, _, before_ms) in enumerate(B5_SHAPES):
         args = _mbconv_args(MAIN_BATCH, h, w, cin, cexp, k, torch.float32, device, seed=30 + i)
         got = fused_expand_dw(*args)
         want = expand_dw_plain(*args)
@@ -561,14 +583,21 @@ def fp32_mbconv_rows(device):
         del got, want, err
         row["ms"] = cuda_ms(lambda: fused_expand_dw(*args), reps=3)
         row["plain_ms"] = cuda_ms(lambda: expand_dw_plain(*args), reps=1)
-        row.update(mbconv_bound(MAIN_BATCH, h, w, cin, cexp, k, torch.float32))
+        bound = mbconv_bound(MAIN_BATCH, h, w, cin, cexp, k, torch.float32)
+        fma_ms = bound.pop("fma_bound_ms")
+        row.update(bound)
         rows.append(row)
-        say(f"[kernel 2 fp32] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH}: {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"max abs err {row['max_abs_err']:.3g}")
+        say(f"[kernel 2 fp32] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH}: {row['ms']:.4f} ms "
+            f"(CUDA-core design {before_ms:.4f} ms), plain {row['plain_ms']:.3f} ms"
+            f"{slower_than_plain(row)}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"fp32 FMAs {fma_ms:.4f} ms), max abs err {row['max_abs_err']:.3g}")
         del args
     torch.cuda.empty_cache()
     return rows
+
+
+def slower_than_plain(row):
+    return " (slower than plain)" if row["ms"] > row["plain_ms"] else ""
 
 
 def phase_c_dissect(device, pool, dissector):
@@ -621,7 +650,8 @@ def phase_c_dissect(device, pool, dissector):
           and np.allclose(csv_similarities(rerun["df"]), sims, rtol=1e-6, atol=1e-6),
           "C-dissect rerun wrote another CSV")
     fp32 = fp32_mbconv_rows(device)
-    per_forward = {key: sum(r[key] * r["blocks"] for r in fp32) for key in ("ms", "plain_ms", "bound_ms")}
+    per_forward = {key: sum(r[key] * r["blocks"] for r in fp32)
+                   for key in ("ms", "plain_ms", "bound_ms")}
     row = {"images": C_DISSECT_N, "batch": MAIN_BATCH, "batches": n_batches,
            "wall_s": first["wall_s"], "img_per_s": C_DISSECT_N / first["wall_s"],
            "rerun_wall_s": rerun["wall_s"], "max_memory_allocated_bytes": first["peak"],
@@ -640,8 +670,9 @@ def phase_c_dissect(device, pool, dissector):
     say(f"[c-dissect] rerun: every cache file found, both harvests skipped, "
         f"{rerun['wall_s']:.2f} s, launches {rerun['launches']}")
     say(f"[kernel 2 fp32] one forward's 32 launches at batch {MAIN_BATCH}: "
-        f"{per_forward['ms']:.3f} ms, plain {per_forward['plain_ms']:.3f} ms, bound "
-        f"{per_forward['bound_ms']:.3f} ms")
+        f"{per_forward['ms']:.3f} ms against {FP32_CUDA_CORE_FORWARD_MS} ms before the 3xTF32 "
+        f"redesign, plain {per_forward['plain_ms']:.3f} ms, bound "
+        f"{per_forward['bound_ms']:.3f} ms (3xTF32; fp32 FMAs {fma_forward_ms(fp32):.3f} ms)")
     return row
 
 
@@ -1416,14 +1447,16 @@ def phase_zoo(device, gdissect, c_dissect, pool):
     return {"runs": rows, "kernel1": kernel1, "card_vs_cpu": agree}
 
 
-# (k, H, W, Cin, Cexp, number of V2-S blocks of this shape) at 1520x912: the 28
-# stride-1 expanded MBConv blocks of EfficientNetV2-S, kernel 2's V2 shapes
+# (k, H, W, Cin, Cexp, number of V2-S blocks of this shape, the CUDA-core fp32
+# design's ms) at 1520x912: the 28 stride-1 expanded MBConv blocks of
+# EfficientNetV2-S, kernel 2's V2 shapes; the last column as B5_SHAPES' last
 V2_SHAPES = [
-    (3, 95, 57, 128, 512, 5),      # blocks 11-15
-    (3, 95, 57, 128, 768, 1),      # 16
-    (3, 95, 57, 160, 960, 8),      # 17-24
-    (3, 48, 29, 256, 1536, 14),    # 26-39
+    (3, 95, 57, 128, 512, 5, 1.3939),      # blocks 11-15
+    (3, 95, 57, 128, 768, 1, 2.0561),      # 16
+    (3, 95, 57, 160, 960, 8, 3.0357),      # 17-24
+    (3, 48, 29, 256, 1536, 14, 1.9489),    # 26-39
 ]
+V2_FP32_CUDA_CORE_FORWARD_MS = (60.442, 60.747)  # one V2-S forward's 28, two runs (PERF.md)
 V2_ARCH = "upmc_breast_clip_efficientnetv2-s_ft"
 V2_UNITS = 24 * 2 + 48 * 4 + 64 * 4 + 128 * 6 + 160 * 9 + 256 * 15  # 6544, all 40 blocks
 PT_BATCH, PT_TIMED_STEPS, PT_TEXT_LEN = 4, 10, 256  # pretraining: B5 + BERT at full width
@@ -1434,14 +1467,16 @@ PT_CLI_ROWS = 8        # rows of the pretrain CLI's CSV (two PNGs each)
 def v2_mbconv_rows(device):
     """(a): kernel 2 against its plain version at each V2-S MBConv shape at the
     C-dissect's batch, fp32 (tol 1e-4 + 1e-4|x|) and bf16 (the scales and 2e-3/2e-2
-    of phase 4), each timed with its plain version and its bound."""
+    of phase 4), each timed with its plain version and its bound (fp32 adds the
+    fp32-FMA bound and the CUDA-core design's time to the printed line)."""
     import torch
 
     from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 
     rows = []
-    for i, (k, h, w, cin, cexp, n_blocks) in enumerate(V2_SHAPES):
+    for i, (k, h, w, cin, cexp, n_blocks, before_ms) in enumerate(V2_SHAPES):
         row = {"k": k, "H": h, "W": w, "Cin": cin, "Cexp": cexp, "blocks": n_blocks}
+        fma_ms = mbconv_bound(MAIN_BATCH, h, w, cin, cexp, k, torch.float32)["fma_bound_ms"]
         for name, dtype, (atol, rtol) in (("fp32", torch.float32, (1e-4, 1e-4)),
                                           ("bf16", torch.bfloat16, (2e-3, 2e-2))):
             args = _mbconv_args(MAIN_BATCH, h, w, cin, cexp, k, dtype, device, seed=50 + i)
@@ -1453,15 +1488,20 @@ def v2_mbconv_rows(device):
                   f"kernel 2 {name} disagrees at the V2 shape {row}: max abs err {float(err.max())}")
             del got, want
             bound = mbconv_bound(MAIN_BATCH, h, w, cin, cexp, k, dtype)
+            bound.pop("fma_bound_ms", None)
             row[name] = {"max_abs_err": float(err.max()),
                          "ms": cuda_ms(lambda: fused_expand_dw(*args), reps=3),
                          "plain_ms": cuda_ms(lambda: expand_dw_plain(*args), reps=1), **bound}
             del args, err
         rows.append(row)
+        f = row["fp32"]
         say(f"[kernel 2 V2] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH} ({n_blocks} blocks): "
-            + "; ".join(f"{d} {row[d]['ms']:.4f} ms, plain {row[d]['plain_ms']:.3f} ms, bound "
-                        f"{row[d]['bound_ms']:.4f} ms ({row[d]['bound_by']}), max abs err "
-                        f"{row[d]['max_abs_err']:.3g}" for d in ("fp32", "bf16")))
+            f"fp32 {f['ms']:.4f} ms (CUDA-core design {before_ms:.4f} ms), plain {f['plain_ms']:.3f} ms"
+            f"{slower_than_plain(f)}, bound {f['bound_ms']:.4f} ms ({f['bound_by']}; fp32 FMAs "
+            f"{fma_ms:.4f} ms), max abs err {f['max_abs_err']:.3g}; "
+            f"bf16 {row['bf16']['ms']:.4f} ms, plain {row['bf16']['plain_ms']:.3f} ms, bound "
+            f"{row['bf16']['bound_ms']:.4f} ms ({row['bf16']['bound_by']}), max abs err "
+            f"{row['bf16']['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     return rows
 
@@ -1862,8 +1902,12 @@ def phase_v2_pretrain(device, pool, c_dissect, png_root):
     per_forward = {d: {key: sum(r[d][key] * r["blocks"] for r in shapes)
                        for key in ("ms", "plain_ms", "bound_ms")} for d in ("fp32", "bf16")}
     for d, f in per_forward.items():
+        before = (f" against {V2_FP32_CUDA_CORE_FORWARD_MS[0]}-{V2_FP32_CUDA_CORE_FORWARD_MS[1]}"
+                  " ms before the 3xTF32 redesign" if d == "fp32" else "")
+        fma = f"; fp32 FMAs {fma_forward_ms(shapes):.3f} ms" if d == "fp32" else ""
         say(f"[kernel 2 V2] one V2-S forward's 28 launches at batch {MAIN_BATCH}, {d}: "
-            f"{f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms")
+            f"{f['ms']:.3f} ms{before}, plain {f['plain_ms']:.3f} ms, bound "
+            f"{f['bound_ms']:.3f} ms{fma}")
     pt = pretrain_steps(device, pool)
     cli = pretrain_cli(device, png_root)
     torch.cuda.empty_cache()

@@ -10,12 +10,15 @@
 // {3, 5}, any H and W (masked tail tiles), any Cin and Cexp (masked channel
 // tails, no 128-lane padding), bf16 and fp32.
 //
-// Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores, 67
-// TFLOP/s fp32 outside them), per call: bytes B*H*W*(Cin+Cexp)*sizeof(T); expand
-// 2*B*H*W*Cin*Cexp FLOPs (tensor cores); depthwise 2*K*K*B*H*W*Cexp FLOPs (fp32
-// FMAs). The expanded tensor (Cexp/Cin = 6 times the input) never goes to device
-// memory. At B5 widths the expand is ~95% of the FLOPs, so it runs on the tensor
-// cores; the depthwise's fp32 FMAs are the rest.
+// Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 and 495 TFLOP/s tf32 on the
+// tensor cores, 67 TFLOP/s fp32 outside them), per call: bytes
+// B*H*W*(Cin+Cexp)*sizeof(T); expand 2*B*H*W*Cin*Cexp FLOPs (tensor cores);
+// depthwise 2*K*K*B*H*W*Cexp FLOPs (fp32 FMAs). The expanded tensor (Cexp/Cin = 6
+// times the input) never goes to device memory. At B5 widths the expand is ~95% of
+// the FLOPs, so it runs on the tensor cores; the depthwise's fp32 FMAs are the rest.
+// In fp32 the expand takes three tf32 products (3xTF32, below), so its bound is the
+// expand at 495/3 TFLOP/s beside the depthwise at 67 TFLOP/s: 6.69 ms a B5 forward
+// at batch 16 (14.29 ms were both on the fp32 FMAs).
 //
 // bf16 design. The TPU kernel keeps a (t+4) x (W+4) x Cin input slab in VMEM, ~1.4
 // MB at block 4 and far over the 227 KB of shared memory a block may use. A block
@@ -46,10 +49,48 @@
 // Widths that are not multiples of 8, or unaligned pointers, stage and store
 // element by element instead of the 16-byte paths.
 //
-// fp32 stays on the CUDA cores (the tensor cores take fp32 only as TF32, which
-// the port's TF32-off policy forbids): 8 x 16 output tiles, 64 channels, the
-// expand as fp32 FMAs staged 32 input channels at a time, then the depthwise from
-// shared memory. It serves the fp32 checks, not the bf16 main path.
+// fp32 design: 3xTF32 on the tensor cores. The tensor cores take fp32 only as tf32
+// (a 10-bit mantissa, ~3 decimal digits), which the port's float32 policy (TF32 off,
+// as the JAX package's fp32 path) forbids for a single product. Each operand v is
+// split as big = tf32(v) and small = tf32(v - big) (round to nearest), so v = big +
+// small to ~2^-22 |v|; each k8 step computes big*big, then small*big + big*small,
+// in mma.sync m16n8k8 (tf32 in, fp32 sums), and small*small (~2^-22) is dropped.
+// The tensor cores truncate as they accumulate, so each k8 step starts its own sum
+// from zero and joins the running sum by an fp32 add: summed in the tensor cores
+// over all of Cin, the truncation drifts by ~1e-5 relative at Cin 512 (measured on
+// the H100); this way the kernel is within ~4e-7 (1 + |x|) of float64, as float32
+// products are, where one tf32 pass is off by ~2e-4 to 4e-4 (tests/_mbconv_f64.py).
+// x is split as its fragments are loaded (by the two warps that share an m16 tile),
+// the weight as its fragments are loaded, in every warp and every block: three
+// instructions a value beside three MMAs, where a split once in the wrapper or the
+// tower's cached front weights would add a launch or a second weight tensor and
+// another C interface.
+// A block owns one image, a 16 x 15 output tile and 48 expanded channels:
+//   expand: M = the (16+K-1) x (15+K-1) halo positions (306 for K = 3, 380 for K =
+//     5: 20 and 24 m16 tiles), N = 48, K = Cin; 8 warps as 4 along M x 2 along N,
+//     each with every 4th m16 tile and 3 n8 tiles. x arrives as 16-byte cp.async
+//     copies, 16 input channels a stage (two k8 steps), three stages, two chunks in
+//     flight during the products; A fragments by ldmatrix (8 x 4 words; rows padded
+//     by 16 bytes, free of bank conflicts), B fragments by 32-bit loads from the
+//     row-major [Cin, Cexp] weight (rows padded to 56 words, free of conflicts).
+//     Out-of-image positions and channel tails are zero-filled, and a chunk runs only
+//     the k8 steps it has (Cin = 40 costs five).
+//   epilogue: BN1 from the sums into the fp32 expanded tile in shared memory (over
+//     the stages), exact zeros at out-of-image halo positions (SAME zeros for the
+//     depthwise; silu(0) = 0), then SiLU over the tile in a pass of its own, once the
+//     sums' registers are free (16-byte vectors; fast exponential and division).
+//   depthwise: one channel a thread, a register window sliding along 5 output
+//     columns, K*K fp32 weights in registers, BN2 + SiLU, stored from registers (a
+//     warp writes 32 neighbouring channels: whole 32-byte sectors).
+// 16 x 15 rather than the bf16 16 x 12: 29 columns (the 48 x 29 deep blocks) split
+// into 2 tiles of 15 instead of 3 of 12, whose last is 5 wide; the halo recompute is
+// 20*16/240 = 1.33 (K = 3) and 24*16/240 = 1.6 (K = 5) with the m16 padding. The
+// shared memory (3 stages of 29-34 KB, or the 68-85 KB expanded tile) and 128
+// registers a thread allow two blocks an SM (8 x 15 tiles at three blocks an SM
+// were slower at the five B5 shapes timed: 40->240 k3, 64->384 k5, 176->1056 k5,
+// 304->1824 k5 and 512->3072 k3).
+// Widths that are not multiples of 4, or unaligned pointers, stage element by
+// element instead of the 16-byte copies.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -61,7 +102,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+// SiLU by the fast exponential and division: a few fp32 ulps (as accurate as the fp32
+// sums before it); the SiLUs are most of the work past the MMAs, and the accurate
+// expf and IEEE division cost several instructions more
+__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
 
 // ---------------------------------------------------------------- bf16, tensor cores
 namespace tc {
@@ -78,11 +122,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int XS = KC + 8;        // input row stride (bf16): 80 bytes
 constexpr int WS = CT + 8;        // weight row stride: 112 bytes
 constexpr int ES = CT + 8;        // expanded / output tile row stride: 112 bytes
-
-// SiLU for the bf16 path: the fast exponential and division (a few fp32 ulps, far
-// below the bf16 rounding that follows); the SiLUs are most of the work past the
-// MMAs, and the accurate expf and IEEE division cost several instructions more
-__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
 
 template <int K>
 struct Geometry {
@@ -336,133 +375,250 @@ int launch_bf16(const void* x, const void* w_exp, const void* s1, const void* b1
 
 }  // namespace tc
 
-// ---------------------------------------------------------------- fp32, CUDA cores
+// ---------------------------------------------------------------- fp32, 3xTF32 tensor cores
 namespace f32 {
 
-constexpr int TH = 8;         // output rows per block
-constexpr int TW = 16;        // output columns per block
-constexpr int CT = 64;        // expanded channels per block
-constexpr int CI = 32;        // input channels staged per pass
-constexpr int THREADS = 256;
-constexpr int CG = CT / 4;          // channel groups of 4 (expand)
-constexpr int PG = THREADS / CG;    // position groups (expand)
-constexpr int ROW_GROUPS = THREADS / CT;  // depthwise
+constexpr int TH = 16;            // output rows per block
+constexpr int TW = 15;            // output columns per block
+constexpr int SEG = 5;            // output columns of one depthwise window
+constexpr int CT = 48;            // expanded channels per block
+constexpr int NT = CT / 8;        // n8 tiles of the expand
+constexpr int WARPS_M = 4;        // warps along the halo positions
+constexpr int WARPS_N = 2;        // warps along the channels
+constexpr int NPW = NT / WARPS_N;  // n8 tiles of a warp
+constexpr int KC = 16;            // input channels per stage (two k8 steps)
+constexpr int STAGES = 3;
+constexpr int THREADS = WARPS_M * WARPS_N * 32;
+constexpr int XS = KC + 4;        // input row stride (floats): 80 bytes
+constexpr int WS = CT + 8;        // weight row stride: 224 bytes
+constexpr int ES = CT + 8;        // expanded tile row stride
 
 template <int K>
 struct Geometry {
-  static constexpr int HP = TH + K - 1;
   static constexpr int WP = TW + K - 1;
-  static constexpr int NP = HP * WP;                // halo positions
-  static constexpr int NJ = (NP + PG - 1) / PG;     // positions per thread
-  static constexpr int NP_PAD = NJ * PG;
-  static constexpr int XS = CI + 1;                 // padded row: no bank conflicts
-  static constexpr int SMEM_A = (NP_PAD * XS + CI * CT) * 4;
-  static constexpr int SMEM_B = NP * CT * 4;
+  static constexpr int NP = (TH + K - 1) * WP;      // halo positions
+  static constexpr int MT = (NP + 15) / 16;         // m16 tiles of the expand
+  static constexpr int MPW = (MT + WARPS_M - 1) / WARPS_M;
+  static constexpr int ROWS = MT * 16;
+  static constexpr int STAGE = ROWS * XS + KC * WS;  // floats
+  static constexpr int SMEM_A = STAGES * STAGE * 4;
+  static constexpr int SMEM_B = NP * ES * 4;
   static constexpr int SMEM = SMEM_A > SMEM_B ? SMEM_A : SMEM_B;
 };
 
 template <int K>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: one's copies, another's math
 expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_exp,
                      const float* __restrict__ s1, const float* __restrict__ b1,
                      const float* __restrict__ w_dw, const float* __restrict__ s2,
-                     const float* __restrict__ b2, float* __restrict__ out,
-                     int H, int W, int cin, int cexp, int tiles_w) {
+                     const float* __restrict__ b2, float* __restrict__ out, int H, int W,
+                     int cin, int cexp, int ctiles, int tiles_w, int vec) {
   using G = Geometry<K>;
   constexpr int PAD = (K - 1) / 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [NP_PAD][XS]   expand
-  float* ws = xs + G::NP_PAD * G::XS;          // [CI][CT]       expand
-  float* es = reinterpret_cast<float*>(smem);  // [NP][CT]       depthwise
+  __shared__ float s_bn[4][CT];                      // s1, b1, s2, b2 of the tile
+  __shared__ __align__(8) float s_wdw[K * K][CT];
+  float* const sm = reinterpret_cast<float*>(smem);
 
-  const int tid = threadIdx.x;
-  const int y0 = (blockIdx.x / tiles_w) * TH;
-  const int x0 = (blockIdx.x % tiles_w) * TW;
-  const int c0 = blockIdx.y * CT;
-  const int64_t img = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  // channel tiles run fastest, so the blocks that share a halo tile share it in L2
+  const int c0 = (blockIdx.x % ctiles) * CT;
+  const int tile = blockIdx.x / ctiles;
+  const int y0 = (tile / tiles_w) * TH;
+  const int x0 = (tile % tiles_w) * TW;
+  const int64_t img = blockIdx.y;
+  const float* const ximg = x + img * H * W * cin;
 
-  // ---- expand over the halo tile, sums in registers
-  const int cg = tid % CG, pg = tid / CG;
-  float acc[G::NJ][4];
-#pragma unroll
-  for (int j = 0; j < G::NJ; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+  for (int i = tid; i < 4 * CT; i += THREADS) {
+    const int r = i / CT, c = c0 + i % CT;
+    const float* v = r == 0 ? s1 : r == 1 ? b1 : r == 2 ? s2 : b2;
+    s_bn[r][i % CT] = c < cexp ? v[c] : 0.0f;
   }
-  for (int ci0 = 0; ci0 < cin; ci0 += CI) {
-    __syncthreads();  // the previous pass is done reading xs/ws
-    for (int i = tid; i < G::NP_PAD * CI; i += THREADS) {
-      const int p = i / CI, ci = i % CI;
-      float v = 0.0f;
-      if (p < G::NP && ci0 + ci < cin) {
+  for (int i = tid; i < K * K * CT; i += THREADS) {
+    const int t = i / CT, c = c0 + i % CT;
+    s_wdw[t][i % CT] = c < cexp ? w_dw[(int64_t)t * cexp + c] : 0.0f;
+  }
+
+  // one stage: the halo rows' KC input channels and the KC x CT weight block,
+  // zero-filled outside the image and past the channel tails
+  auto load_stage = [&](int s, int ci0) {
+    float* const xs = sm + s * G::STAGE;
+    float* const ws = xs + G::ROWS * XS;
+    if (vec) {
+#pragma unroll 1
+      for (int i = tid; i < G::NP * (KC / 4); i += THREADS) {
+        const int p = i / (KC / 4), seg = i % (KC / 4);
+        const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP, ci = ci0 + seg * 4;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci < cin;
+        const float* src = ok ? ximg + ((int64_t)gy * W + gx) * cin + ci : x;
+        hopper::cp_async16(hopper::smem_addr(xs + p * XS + seg * 4), src, ok ? 16 : 0);
+      }
+#pragma unroll 1
+      for (int i = tid; i < KC * (CT / 4); i += THREADS) {
+        const int r = i / (CT / 4), seg = i % (CT / 4);
+        const int ci = ci0 + r, c = c0 + seg * 4;
+        const bool ok = ci < cin && c < cexp;
+        const float* src = ok ? w_exp + (int64_t)ci * cexp + c : w_exp;
+        hopper::cp_async16(hopper::smem_addr(ws + r * WS + seg * 4), src, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = tid; i < G::NP * KC; i += THREADS) {
+        const int p = i / KC, ci = ci0 + i % KC;
         const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = x[((img * H + gy) * W + gx) * cin + ci0 + ci];
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci < cin;
+        xs[p * XS + i % KC] = ok ? ximg[((int64_t)gy * W + gx) * cin + ci] : 0.0f;
       }
-      xs[p * G::XS + ci] = v;
-    }
-    for (int i = tid; i < CI * CT; i += THREADS) {
-      const int ci = i / CT, c = i % CT;
-      ws[ci * CT + c] = ci0 + ci < cin && c0 + c < cexp ? w_exp[(int64_t)(ci0 + ci) * cexp + c0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int ci = 0; ci < CI; ++ci) {
-      const float4 wv = *reinterpret_cast<const float4*>(ws + ci * CT + cg * 4);
-#pragma unroll
-      for (int j = 0; j < G::NJ; ++j) {
-        const float xv = xs[(pg + j * PG) * G::XS + ci];
-        acc[j][0] = fmaf(xv, wv.x, acc[j][0]);
-        acc[j][1] = fmaf(xv, wv.y, acc[j][1]);
-        acc[j][2] = fmaf(xv, wv.z, acc[j][2]);
-        acc[j][3] = fmaf(xv, wv.w, acc[j][3]);
+#pragma unroll 1
+      for (int i = tid; i < KC * CT; i += THREADS) {
+        const int ci = ci0 + i / CT, c = c0 + i % CT;
+        ws[(i / CT) * WS + i % CT] = ci < cin && c < cexp ? w_exp[(int64_t)ci * cexp + c] : 0.0f;
       }
     }
-  }
+  };
 
-  // BN1 + SiLU, SAME zeros outside the image; es overwrites xs/ws
-  float sc[4], bi[4];
+  // ---- expand on the tensor cores as 3xTF32, STAGES - 1 chunks of cp.async in flight
+  float acc[G::MPW][NPW][4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = c0 + cg * 4 + q;
-    sc[q] = c < cexp ? s1[c] : 0.0f;
-    bi[q] = c < cexp ? b1[c] : 0.0f;
+  for (int mi = 0; mi < G::MPW; ++mi)
+#pragma unroll
+    for (int j = 0; j < NPW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.0f;
+
+  const int g = lane >> 2, t4 = lane & 3;
+  // one commit group per chunk (empty past the last), so chunk ch is complete once at
+  // most STAGES - 2 newer groups are pending
+  const int nchunks = (cin + KC - 1) / KC;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nchunks) load_stage(s, s * KC);
+    hopper::cp_async_commit();
   }
-  __syncthreads();  // every thread is done with xs/ws
+  for (int ch = 0; ch < nchunks; ++ch) {
+    hopper::cp_async_wait<STAGES - 2>();
+    // chunk ch is complete for every thread, and every warp is done with chunk ch - 1,
+    // whose stage the next load refills
+    __syncthreads();
+    const int next = ch + STAGES - 1;
+    if (next < nchunks) load_stage(next % STAGES, next * KC);
+    hopper::cp_async_commit();
+    const float* const xs = sm + (ch % STAGES) * G::STAGE;
+    const float* const ws = xs + G::ROWS * XS;
+    const int ksteps = (min(KC, cin - ch * KC) + 7) / 8;
 #pragma unroll
-  for (int j = 0; j < G::NJ; ++j) {
-    const int p = pg + j * PG;
-    if (p < G::NP) {
+    for (int ks = 0; ks < KC / 8; ++ks) {
+      if (ks < ksteps) {
+        const int kk = ks * 8;
+        uint32_t bh[NPW][2], bl[NPW][2];
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          const float* const wcol = ws + (kk + t4) * WS + (wn * NPW + j) * 8 + g;
+          hopper::split_tf32(wcol[0], bh[j][0], bl[j][0]);
+          hopper::split_tf32(wcol[4 * WS], bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < G::MPW; ++mi) {
+          const int mt = wm + mi * WARPS_M;
+          if (mt < G::MT) {
+            uint32_t a[4], ah[4], al[4];
+            hopper::ldmatrix_x4(
+                a, hopper::smem_addr(xs + (mt * 16 + (lane & 15)) * XS + kk + (lane >> 4) * 4));
+#pragma unroll
+            for (int q = 0; q < 4; ++q) hopper::split_tf32(__uint_as_float(a[q]), ah[q], al[q]);
+            // big x big, then the small products into this k8 step's own sum, which joins
+            // the running sum by an fp32 add (the tensor cores truncate as they
+            // accumulate: over all of Cin in their sums that drifts by ~1e-5 at Cin 512);
+            // small x small (~2^-22) is dropped
+            float part[NPW][4];
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) hopper::mma_tf32_1688_zero(part[j], ah, bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) hopper::mma_tf32_1688(part[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) hopper::mma_tf32_1688(part[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < NPW; ++j)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[mi][j][q] += part[j][q];
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the stages, which the expanded tile overwrites
+
+  // ---- BN1, then SiLU, SAME zeros outside the image, the fp32 expanded tile over the
+  // stages. BN1 is applied from the sums and zeros written outside the image
+  // (silu(0) = 0); the SiLUs follow in a pass of their own, once the sums' registers
+  // are free
+  float* const es = sm;  // [NP][ES]
+#pragma unroll
+  for (int mi = 0; mi < G::MPW; ++mi) {
+    const int mt = wm + mi * WARPS_M;
+    if (mt >= G::MT) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mt * 16 + g + h * 8;
+      if (p >= G::NP) continue;
       const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      float e[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) e[q] = inside ? silu(acc[j][q] * sc[q] + bi[q]) : 0.0f;
-      *reinterpret_cast<float4*>(es + p * CT + cg * 4) = make_float4(e[0], e[1], e[2], e[3]);
+      for (int j = 0; j < NPW; ++j) {
+        const int c = (wn * NPW + j) * 8 + t4 * 2;
+        const float v0 = fmaf(acc[mi][j][2 * h], s_bn[0][c], s_bn[1][c]);
+        const float v1 = fmaf(acc[mi][j][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1]);
+        *reinterpret_cast<float2*>(es + p * ES + c) =
+            inside ? make_float2(v0, v1) : make_float2(0.0f, 0.0f);
+      }
     }
   }
   __syncthreads();
+  for (int i = tid; i < G::NP * (CT / 4); i += THREADS) {
+    float4* const e4 = reinterpret_cast<float4*>(es + (i / (CT / 4)) * ES) + i % (CT / 4);
+    const float4 v = *e4;
+    *e4 = make_float4(silu_fast(v.x), silu_fast(v.y), silu_fast(v.z), silu_fast(v.w));
+  }
+  __syncthreads();
 
-  // ---- depthwise K x K from shared memory, BN2 + SiLU
-  const int c = tid % CT, rg = tid / CT;
-  if (c0 + c >= cexp) return;
-  float wk[K * K];
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) wk[t] = w_dw[(int64_t)t * cexp + c0 + c];
-  const float sc2 = s2[c0 + c], bi2 = b2[c0 + c];
-  for (int r = rg; r < TH; r += ROW_GROUPS) {
+  // ---- depthwise K x K, one channel a thread (a warp reads 32 neighbouring channels),
+  // a window sliding along SEG columns, BN2 + SiLU, stored from registers (a warp
+  // writes whole 32-byte sectors); a channel a thread keeps the K = 5 window and
+  // weights in 50 registers
+  constexpr int ITEMS = CT * TH * (TW / SEG);
+  for (int it = tid; it < ITEMS; it += THREADS) {
+    const int c = it % CT, rest = it / CT;
+    const int r = rest / (TW / SEG), col0 = (rest % (TW / SEG)) * SEG;
     const int gy = y0 + r;
-    if (gy >= H) break;
-    for (int col = 0; col < TW; ++col) {
-      const int gx = x0 + col;
-      if (gx >= W) break;
-      float a = 0.0f;
+    if (gy >= H || x0 + col0 >= W || c0 + c >= cexp) continue;
+    float wk[K * K];
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) wk[t] = s_wdw[t][c];
+    const float sc = s_bn[2][c], bi = s_bn[3][c];
+    float* const orow = out + ((img * H + gy) * W + x0 + col0) * cexp + c0 + c;
+    float win[K][K];
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx) win[dy][dx] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < SEG + K - 1; ++j) {
 #pragma unroll
       for (int dy = 0; dy < K; ++dy) {
 #pragma unroll
-        for (int dx = 0; dx < K; ++dx)
-          a = fmaf(es[((r + dy) * G::WP + col + dx) * CT + c], wk[dy * K + dx], a);
+        for (int dx = 0; dx < K - 1; ++dx) win[dy][dx] = win[dy][dx + 1];
+        win[dy][K - 1] = es[((r + dy) * G::WP + col0 + j) * ES + c];
       }
-      out[((img * H + gy) * W + gx) * cexp + c0 + c] = silu(a * sc2 + bi2);
+      const int col = j - (K - 1);
+      if (col >= 0 && x0 + col0 + col < W) {
+        float a = 0.0f;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) a = fmaf(win[dy][dx], wk[dy * K + dx], a);
+        orow[(int64_t)col * cexp] = silu_fast(fmaf(a, sc, bi));
+      }
     }
   }
 }
@@ -476,14 +632,23 @@ int launch_f32(const void* x, const void* w_exp, const void* s1, const void* b1,
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          G::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // two blocks an SM need ~2 x 108 KB: ask for the largest shared-memory carveout
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ctiles = (cexp + CT - 1) / CT;
   const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const dim3 grid(tiles_h * tiles_w, (cexp + CT - 1) / CT, batch);
+  const int64_t blocks = static_cast<int64_t>((H + TH - 1) / TH) * tiles_w * ctiles;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = cin % 4 == 0 && cexp % 4 == 0 && aligned(x) && aligned(w_exp);
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
   kernel<<<grid, THREADS, G::SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w_exp),
       static_cast<const float*>(s1), static_cast<const float*>(b1),
       static_cast<const float*>(w_dw), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<float*>(out), H, W, cin, cexp, tiles_w);
+      static_cast<const float*>(b2), static_cast<float*>(out), H, W, cin, cexp, ctiles,
+      tiles_w, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

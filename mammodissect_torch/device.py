@@ -37,6 +37,9 @@ def set_fp32_policy() -> None:
 
     Scoring is true float32 (the JAX package uses Precision.HIGHEST for
     clip_feats and the cosine scores), and cuDNN runs float32 convolutions in
-    TF32 by default, which keeps only about three decimal digits."""
+    TF32 by default, which keeps only about three decimal digits. The port's own
+    MBConv kernel keeps to the policy on the tensor cores: its float32 expand is
+    3xTF32 (each operand split into two tf32 parts, three products summed in
+    float32), about as accurate as float32 products."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -7,10 +7,14 @@ PyTorch version.
 Counterpart of the TPU kernel `mammodissect/ops/pallas_mbconv.py::fused_expand_dw`,
 with the same layouts at the public function (NHWC activations, w_exp [Cin, Cexp],
 w_dw [k, k, Cexp], folded BN scale/bias [Cexp] f32), for k in {3, 5}, any H, W,
-Cin, Cexp, in float32 or bfloat16. `fused_expand_dw` launches the kernel for CUDA
-tensors and runs `expand_dw_plain` for CPU tensors, and only then. The kernel has no
-backward (neither has the TPU kernel): on inputs that need a gradient it raises.
-`fused_expand_dw.launches` counts kernel launches.
+Cin, Cexp, in float32 or bfloat16. Both dtypes run the expand on the tensor cores:
+bf16 as bf16 products, float32 as 3xTF32 (each operand split into two tf32 parts and
+three products summed in fp32), which keeps float32 accuracy under the port's TF32-off
+policy (`device.set_fp32_policy`); the kernel source's note gives the design.
+`fused_expand_dw` launches the kernel for CUDA tensors and runs `expand_dw_plain` for
+CPU tensors, and only then. The kernel has no backward (neither has the TPU kernel):
+on inputs that need a gradient it raises. `fused_expand_dw.launches` counts kernel
+launches.
 """
 from __future__ import annotations
 

@@ -124,3 +124,27 @@ def test_fold_bn_matches_jax():
     got = fold_bn(*(torch.from_numpy(a.astype(np.float32)) for a in (gamma, beta, mean, var)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-6)
+
+
+def test_tf32_rounds_like_cvt_rna():
+    """The tf32 emulation behind the GPU precision test's one-pass control
+    (`tests/_mbconv_f64.py`) rounds as `cvt.rna.tf32.f32`: to 10 mantissa bits,
+    nearest, ties away from zero."""
+    from _mbconv_f64 import tf32
+
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 3 * 2.0 ** -11),
+                      1.0 + 2.0 ** -10 + 2.0 ** -12])
+    assert tf32(v).tolist() == [1.0 + 2.0 ** -10, 1.0, -(1.0 + 2 * 2.0 ** -10), 1.0 + 2.0 ** -10]
+
+
+@pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 38, 29, 40, 240), (5, 13, 11, 20, 120),
+                                            (3, 6, 5, 512, 3072)])
+def test_float64_reference_matches_plain(k, h, w, cin, cexp):
+    """The float64 function the GPU precision test holds the fp32 kernel to is kernel
+    2's: the plain version in float32 agrees with it within that test's tolerance
+    (`F64_TOL`) at its expand-dominant inputs."""
+    from _mbconv_f64 import expand_dominant_args, expand_dw_f64, relative_err, within_f64_tol
+
+    args = expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, "cpu")
+    got, want = expand_dw_plain(*args).double(), expand_dw_f64(*args)
+    assert within_f64_tol(got, want), relative_err(got, want)
