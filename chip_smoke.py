@@ -112,7 +112,23 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      one NCCL rank (world size 1) through the distributed path on 64 images writes the
      single process's CSV exactly. Wall of each part, img/s of both runs, ms a step and
      peak memory a rank. Two ranks sharing one card measure gloo and the sharing, not
-     scaling.
+     scaling;
+ 15. full-width agreement with the JAX package: the seeded random Mammo-CLIP `.tar`s
+     of `tests/_fullwidth_agreement.py` (drawn weights; calibrated: the same with the
+     image tower's BatchNorm statistics taken from data) and its mammo_png probe
+     images rebuilt (their SHA-256 must equal the manifest's); for two references of
+     128 images at 1520x912 (noise_drawn: `synthetic_u8` noise on the drawn weights;
+     mammo_calibrated: mammogram-shaped PNGs through `csv:` on the calibrated
+     weights) the port's dissect CLI (`cli.dissect.main`, resident, B5 x 39 blocks,
+     batch 8, 12-layer BERT with the toy vocab, the canonical concept file,
+     soft-WPMI) in fp32 with TF32 off and with the bf16 tower, every tensor of the
+     `.tar` checked in the loaded module; each CSV compared with the JAX package's
+     committed CSV (`tests/assets/fullwidth/`): mammo_calibrated in fp32 must reach
+     >= 0.99 per-unit top-1 concept agreement, noise_drawn in fp32 (every score a
+     near tie at 0) must keep its similarities within 1e-3 of JAX's, the other
+     figures are printed; kernel 2 launched 32 times a batch and kernel 1 once in
+     each run; then `cli.analyze` on mammo_calibrated's two CSVs (no figures), the
+     neurons over the local and global thresholds and its host seconds.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
 and fails when any instantiation of either kernel spills. Prints the
@@ -2365,6 +2381,115 @@ def phase_parallel(device, pool):
             "card_vs_cpu": cvc, "reference_s": ref_s, "gloo_s": gloo_s, "nccl_s": nccl_s}
 
 
+FW_TOP1_BAR = 0.99     # BASELINE.md's per-unit top-1 concept agreement
+FW_GATED = "mammo_calibrated"  # the reference whose scores carry the image's signal
+# on noise_drawn every score is 0 within float32 rounding (a few 1e-5): the port's
+# similarities must stay that close to JAX's, while its top-1 concepts are near-ties
+FW_NOISE = "noise_drawn"
+FW_NOISE_SIM_TOL = 1e-3
+FW_PRECISIONS = (("fp32", ()), ("bf16", ("--dissector_kwargs", '{"dtype": "bfloat16"}')))
+
+
+def phase_fullwidth(device):
+    """Phase 15: the flagship M-dissect's full-width agreement with the JAX package.
+    The seeded Mammo-CLIP `.tar`s (drawn and calibrated weights) and the mammo_png
+    probe's images are rebuilt and their SHA-256 held to the manifest's; for the
+    references noise_drawn and mammo_calibrated the port's dissect CLI runs on the
+    card with the manifest's arguments in fp32 (TF32 off) and with the bf16 tower,
+    each CSV compared with the committed JAX CSV (`tests/assets/fullwidth/`):
+    mammo_calibrated in fp32 must reach >= 0.99 top-1, noise_drawn in fp32 (every
+    score a near tie at 0) must keep its similarities within 1e-3 of JAX's, the rest is
+    printed; then `cli.analyze` reads mammo_calibrated's two CSVs."""
+    import pandas as pd
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _fullwidth_agreement as fw
+    from mammodissect_torch.cli import analyze
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+    from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
+
+    t_start = time.perf_counter()
+    with open(fw.MANIFEST) as f:
+        manifest = json.load(f)
+    refs = (FW_NOISE, FW_GATED)
+    for ref in refs:
+        check(manifest["references"][ref]["cli"] == fw.manifest_cli(ref),
+              f"the manifest's {ref} arguments are not the agreement run's")
+    work = tempfile.mkdtemp(prefix="chip_smoke_fullwidth_")
+    t0 = time.perf_counter()
+    tars = {}
+    for weights in fw.WEIGHTS:
+        tars[weights] = fw.write_weights(manifest["seed"],
+                                         os.path.join(work, f"mammo_clip_{weights}.tar"), weights)
+        check(tars[weights][1] == manifest["weights_sha256"][weights],
+              f"{weights} weights sha256 {tars[weights][1]} != the manifest's")
+    probe_dir = os.path.join(work, "mammo_png")
+    images_sha = fw.write_mammo_probe(probe_dir, manifest["seed"])
+    setup_s = time.perf_counter() - t0
+    check(images_sha == manifest["images_sha256"]["mammo_png"],
+          f"mammo_png images sha256 {images_sha} != the manifest's")
+    n_batches = -(-fw.N_IMAGES // fw.BATCH)
+    runs, csvs = {}, {}
+    for ref in refs:
+        probe, weights = fw.REFERENCES[ref]
+        path, _, sd = tars[weights]
+        jax_df = fw.read_csv(fw.jax_csv(ref))
+        check(len(jax_df) == manifest["references"][ref]["rows"] == fw.N_UNITS,
+              f"the JAX {ref} CSV has {len(jax_df)} rows")
+        for precision, extra in FW_PRECISIONS:
+            name = f"{ref} {precision}"
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            fused_expand_dw.launches = 0
+            soft_wpmi_gather_logsum.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            csvs[name] = fw.run_port(probe, "cuda", os.path.join(work, ref, precision), path,
+                                     sd, extra, log=lambda *_: None, probe_dir=probe_dir)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"mbconv": fused_expand_dw.launches,
+                        "wpmi": soft_wpmi_gather_logsum.launches}
+            check(launches == {"mbconv": 32 * n_batches, "wpmi": 1},
+                  f"full-width {name}: launches {launches}, expected kernel 2 32 x "
+                  f"{n_batches} and kernel 1 once")
+            stats = fw.compare_csvs(str(csvs[name]), jax_df)
+            runs[name] = {"wall_s": wall, "launches": launches, **fw.summary(stats),
+                          "disagreements": stats["disagreements"]}
+            say(f"[fullwidth] {name}: CLI {wall:.2f} s with the model build, launches "
+                f"{launches}; vs JAX: {json.dumps(fw.summary(stats))}")
+    check(runs[f"{FW_GATED} fp32"]["top1"] >= FW_TOP1_BAR,
+          f"full-width {FW_GATED} fp32 top-1 agreement with JAX "
+          f"{runs[f'{FW_GATED} fp32']['top1']} < {FW_TOP1_BAR}")
+    check(runs[f"{FW_NOISE} fp32"]["max_similarity_diff"] <= FW_NOISE_SIM_TOL,
+          f"full-width {FW_NOISE} fp32 similarities differ from JAX's by "
+          f"{runs[f'{FW_NOISE} fp32']['max_similarity_diff']} > {FW_NOISE_SIM_TOL}")
+    out = os.path.join(work, "processed")
+    t0 = time.perf_counter()
+    rc = analyze.main(["--csv", str(csvs[f"{FW_GATED} fp32"]), "--csv_b",
+                       str(csvs[f"{FW_GATED} bf16"]), "--out_dir", out])
+    analyze_s = time.perf_counter() - t0
+    for path, _, _ in tars.values():
+        os.remove(path)
+    check(rc == 0, f"cli.analyze returned {rc}")
+    processed = sorted(f for f in os.listdir(out) if f.endswith("_processed.csv"))
+    check(len(processed) == 2, f"cli.analyze wrote {processed}")
+    over = {}
+    for f in processed:
+        df = pd.read_csv(os.path.join(out, f))
+        check(len(df) == fw.N_UNITS, f"{f}: {len(df)} rows")
+        over[f] = {"local": int(df["Threshold_met"].sum()),
+                   "global": int(df["Global_thresh_met"].sum())}
+    say(f"[fullwidth] cli.analyze on {FW_GATED}'s fp32 and bf16 CSVs: {analyze_s:.2f} s on "
+        f"the host; neurons over the local and the global threshold {over}")
+    wall = time.perf_counter() - t_start
+    say(f"[fullwidth] phase 15 in {wall:.1f} s (weights and probe images written in "
+        f"{setup_s:.1f} s)")
+    return {"runs": runs, "analyze_s": analyze_s, "over_threshold": over,
+            "setup_s": setup_s, "wall_s": wall}
+
+
 def main():
     import torch
 
@@ -2412,6 +2537,11 @@ def main():
     t0 = time.perf_counter()
     par = phase_parallel(device, pool)
     say(f"[parallel] phase 14 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    fullwidth = phase_fullwidth(device)
+    fw_launches = {key: {name: r["launches"][key] for name, r in fullwidth["runs"].items()}
+                   for key in ("mbconv", "wpmi")}
+    fw_top1 = {name: round(r["top1"], 4) for name, r in fullwidth["runs"].items()}
     pt_launches = {key: [v2pt["pretrain"][name]["launches"][key]
                          for name in ("plain", "bert_checkpoint", "bert_checkpoint_again",
                                       "plain_again")] + [v2pt["pretrain_cli"]["launches"][key]]
@@ -2448,7 +2578,9 @@ def main():
          # phase 14: each rank of the two-rank resident M-dissect scores the gathered
          # rows once; the one-rank NCCL run once
          "launches_parallel_per_rank": [r["wpmi"] for r in par["launches_dissect_per_rank"]],
-         "launches_parallel_nccl": par["launches_nccl"]["wpmi"]},
+         "launches_parallel_nccl": par["launches_nccl"]["wpmi"],
+         # phase 15: once in each full-width agreement run (two probes, fp32 and bf16)
+         "launches_fullwidth": fw_launches["wpmi"]},
         {"name": "fused_expand_dw", "route": "cuda",
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
@@ -2480,7 +2612,10 @@ def main():
          # one-rank NCCL run, and 32 in each rank's DP fine-tune eval batch
          "launches_parallel_per_rank": [r["mbconv"] for r in par["launches_dissect_per_rank"]],
          "launches_parallel_nccl": par["launches_nccl"]["mbconv"],
-         "launches_parallel_finetune_eval": [f["eval_launches"] for f in par["finetune"]]},
+         "launches_parallel_finetune_eval": [f["eval_launches"] for f in par["finetune"]],
+         # phase 15: 32 a batch of 8 in each full-width agreement run (two probes,
+         # fp32 and bf16)
+         "launches_fullwidth": fw_launches["mbconv"]},
     ]
     say(f"[kernel 2] one forward's 32 launches at batch {MAIN_BATCH}, bf16: "
         f"{per_forward('ms'):.3f} ms (first version {FIRST_VERSION_MS['mbconv_forward']} ms), "
@@ -2497,6 +2632,7 @@ def main():
         f"{v2pt['pretrain']['bert_checkpoint']['ms_per_step']:.2f}), "
         f"two-rank M-dissect {par['images'] / par['two_rank_wall_s']:.2f} img/s (single "
         f"{par['images'] / par['single_wall_s']:.2f}), "
+        f"full-width top-1 vs JAX {fw_top1}, "
         f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

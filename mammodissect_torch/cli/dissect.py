@@ -37,17 +37,13 @@ import json
 import os
 import sys
 import time
-from pathlib import Path
 
+from mammodissect_torch.assets import concept_set_path
 from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
 from mammodissect_torch.parallel.mesh import is_master
 from mammodissect_torch.parallel.multihost import initialize
 from mammodissect_torch.train.loggers import WandbLogger
 from mammodissect_torch.utils.profiling import TRACE_FILE, enable_debug_nans, trace
-
-# the canonical 762-concept set, read in place as a data file
-CONCEPT_SET = (Path(__file__).resolve().parents[2] / "mammodissect" / "assets" / "concepts"
-               / "Specific_concepts_sorted.txt")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,7 +137,7 @@ def main(argv=None):
         target_model=args.target_model,
         target_layers=args.target_layers.split(","),
         d_probe=args.d_probe,
-        concept_set=args.concept_set or str(CONCEPT_SET),
+        concept_set=args.concept_set or concept_set_path(),
         clip_model=args.clip_model,
         batch_size=args.batch_size,
         pool_mode=args.pool_mode,

@@ -22,10 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from pathlib import Path
-
-PROMPTS_JSON = (Path(__file__).resolve().parents[2] / "mammodissect" / "assets" / "dataset"
-                / "prompts.json")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,6 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     import pandas as pd
 
+    from mammodissect_torch.assets import prompts_path
     from mammodissect_torch.data.imagetext import ImageTextDataset
     from mammodissect_torch.device import resolve_device
     from mammodissect_torch.parallel.mesh import is_master
@@ -68,7 +65,7 @@ def main(argv=None):
     initialize(device=str(resolve_device(args.device)))  # torchrun's ranks, if any
     # FINDING-labelled CSVs (vindr) generate text from the canonical prompt templates,
     # which the reference always supplies (`data_utils.py:119`)
-    prompts_json = args.prompts_json or str(PROMPTS_JSON)
+    prompts_json = args.prompts_json or prompts_path()
     with open(prompts_json) as f:
         prompt_json = json.load(f)
     cfg = PretrainConfig(

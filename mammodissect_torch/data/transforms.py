@@ -1,8 +1,10 @@
-"""Host-side image preprocessing in numpy (the parts of `mammodissect/data/transforms.py`
-the probes and fine-tuning need, copied).
+"""Host-side image preprocessing in numpy (a copy of `mammodissect/data/transforms.py`).
 
 - min-max normalize then mean/std (`Datasets/dataset_concepts.py:212-215`)
 - VinDr resize 1520x912, mean 0.3089279 / std 0.25053555 (`concept_vit/data_utils.py:120-122`)
+- CLIP eval preprocessing: 224 bicubic resize, center crop, CLIP normalization
+  (`concept_vit/clip/clip.py:79-86`)
+- the box-aware detection augmentation of the concept-detection dataset
 - the train-time augmentation (flips, one affine warp, elastic deformation) and the
   (train x wire) load matrix of the fine-tune loader, `load_for_wire`: the same
   bytes as the JAX package's for the same seed on the uint8 wire and in training
@@ -10,7 +12,8 @@ All float outputs are HWC float32. `gray_resize_normalize`, the float eval path
 (`CsvProbe.image`, the fine-tune loader's f32 eval wire), resizes with the native
 cv2-style bilinear of `native/` (no antialiasing), as the JAX package does, and
 with PIL only where the native library cannot be built (no g++); every other
-resize, and the uint8 paths, use PIL's bilinear, as in the JAX package."""
+resize, and the uint8 paths, use PIL's bilinear (bicubic in `clip_preprocess`), as
+in the JAX package."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,6 +25,8 @@ VINDR_MEAN = 0.3089279
 VINDR_STD = 0.25053555
 VINDR_SIZE = (1520, 912)  # (H, W)
 
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
@@ -49,12 +54,14 @@ def load_image_u8_resized(path: str, size_hw: tuple[int, int]) -> np.ndarray:
     return arr[..., None]
 
 
-def resize(arr: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of an HWC float array via PIL."""
+def resize(arr: np.ndarray, size_hw: tuple[int, int], method: str = "bilinear") -> np.ndarray:
+    """Resize of an HWC float array via PIL: bilinear for the mammography pipeline,
+    bicubic (`method="bicubic"`) for CLIP's."""
     h, w = size_hw
     if arr.shape[:2] == (h, w):
         return arr
-    chans = [np.asarray(Image.fromarray(arr[..., c]).resize((w, h), Image.BILINEAR),
+    resample = Image.BICUBIC if method == "bicubic" else Image.BILINEAR
+    chans = [np.asarray(Image.fromarray(arr[..., c]).resize((w, h), resample),
                         dtype=np.float32) for c in range(arr.shape[2])]
     return np.stack(chans, axis=-1)
 
@@ -94,6 +101,27 @@ def gray_resize_normalize(arr: np.ndarray, size_hw: tuple[int, int], mean: float
     if prefer_native and native.available():
         return native.resize_normalize(arr, size_hw, mean, std)
     return minmax_meanstd(resize(arr, size_hw), mean, std).astype(np.float32)
+
+
+def vindr_preprocess(arr: np.ndarray, size_hw: tuple[int, int] = VINDR_SIZE) -> np.ndarray:
+    """The VinDr probe pipeline: grayscale, bilinear resize to 1520x912, min-max and
+    mean/std."""
+    if arr.shape[-1] != 1:
+        arr = arr.mean(axis=-1, keepdims=True)
+    arr = resize(arr, size_hw)
+    return minmax_meanstd(arr, VINDR_MEAN, VINDR_STD).astype(np.float32)
+
+
+def clip_preprocess(arr: np.ndarray, size: int = 224) -> np.ndarray:
+    """OpenAI CLIP's eval pipeline (`concept_vit/clip/clip.py:79-86`): bicubic resize
+    of the short side to `size`, center crop, CLIP normalization."""
+    if arr.shape[-1] == 1:
+        arr = np.repeat(arr, 3, axis=-1)
+    h, w = arr.shape[:2]
+    scale = size / min(h, w)
+    arr = resize(arr, (round(h * scale), round(w * scale)), method="bicubic")
+    arr = center_crop(arr, size)
+    return ((arr - CLIP_MEAN) / CLIP_STD).astype(np.float32)
 
 
 def to_u8(arr: np.ndarray) -> np.ndarray:
@@ -152,6 +180,67 @@ def elastic_deform(arr: np.ndarray, rng: np.random.Generator,
         [map_coordinates(arr[..., c], coords, order=1, mode="mirror")
          for c in range(arr.shape[2])], axis=-1)
     return out.astype(np.float32)
+
+
+def transform_boxes_affine(boxes: np.ndarray, fwd: np.ndarray) -> np.ndarray:
+    """Map [N, 4] xyxy boxes through a forward affine: the 4 corners transformed and
+    their axis-aligned hull (imgaug BoundingBox semantics). No clipping: the
+    reference keeps out-of-frame coordinates (`dataset_concepts.py:328-331`)."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+    if not len(boxes):
+        return boxes
+    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    corners = np.stack([
+        np.stack([x1, y1], 1), np.stack([x2, y1], 1),
+        np.stack([x1, y2], 1), np.stack([x2, y2], 1),
+    ], axis=1)  # [N, 4, 2]
+    pts = corners @ fwd[:2, :2].T + fwd[:2, 2]
+    return np.concatenate([pts.min(axis=1), pts.max(axis=1)], axis=1)
+
+
+def augment_detection(
+    arr: np.ndarray,
+    boxes: np.ndarray,
+    rng: np.random.Generator,
+    max_rotate_deg: float = 20.0,
+    translate_frac: float = 0.1,
+    scale_range: tuple[float, float] = (0.8, 1.2),
+    shear_deg: float = 20.0,
+    elastic_alpha: float = 10.0,
+    elastic_sigma: float = 15.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's box-aware detection augmentation (`Datasets/dataset_utils.py:64-71`,
+    an imgaug Sequential): Fliplr(0.5), Flipud(0.5), then always Affine(rotate 20,
+    translate 0.1, scale [0.8, 1.2], shear 20) and ElasticTransformation(alpha,
+    sigma). The boxes follow the flips and the affine's corners; the elastic field
+    (under 0.5 px at alpha 10, sigma 15) warps the image only. Draws from `rng` in
+    the JAX package's order, so a seed gives the same image and boxes.
+
+    arr: HWC float; boxes: [N, 4] xyxy pixels. Returns (arr, boxes)."""
+    h, w = arr.shape[:2]
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4).copy()
+    if rng.random() < 0.5:  # Fliplr
+        arr = arr[:, ::-1]
+        if len(boxes):
+            boxes = np.stack([w - boxes[:, 2], boxes[:, 1],
+                              w - boxes[:, 0], boxes[:, 3]], axis=1)
+    if rng.random() < 0.5:  # Flipud
+        arr = arr[::-1]
+        if len(boxes):
+            boxes = np.stack([boxes[:, 0], h - boxes[:, 3],
+                              boxes[:, 2], h - boxes[:, 1]], axis=1)
+    angle = rng.uniform(-max_rotate_deg, max_rotate_deg)
+    tx = rng.uniform(-translate_frac, translate_frac) * w
+    ty = rng.uniform(-translate_frac, translate_frac) * h
+    scale = rng.uniform(*scale_range)
+    shear = rng.uniform(-shear_deg, shear_deg)
+    fwd = affine_matrix(angle, tx, ty, scale, shear, cx=w / 2.0, cy=h / 2.0)
+    arr = apply_affine(np.ascontiguousarray(arr), fwd)
+    boxes = transform_boxes_affine(boxes, fwd)
+    if elastic_alpha > 0:
+        arr = elastic_deform(np.ascontiguousarray(arr), rng,
+                             alpha=elastic_alpha, sigma=elastic_sigma)
+    return np.ascontiguousarray(arr), boxes
 
 
 def augment_train(

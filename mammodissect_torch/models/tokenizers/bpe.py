@@ -13,15 +13,13 @@ import gzip
 import html
 import re
 from functools import lru_cache
-from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from mammodissect_torch.assets import clip_bpe_vocab_path
+
 CONTEXT_LENGTH = 77  # `clip/clip.py:196`
-# the merges file the reference vendors, read as a data file of the JAX package
-VOCAB_PATH = (Path(__file__).resolve().parents[3] / "mammodissect" / "assets" / "clip"
-              / "bpe_simple_vocab_16e6.txt.gz")
 
 
 @lru_cache()
@@ -170,6 +168,6 @@ class ClipBPETokenizer:
 
 @lru_cache(maxsize=1)
 def _default_tokenizer() -> ClipBPETokenizer:
-    if not VOCAB_PATH.exists():
-        raise FileNotFoundError(f"the CLIP BPE merges file is missing: {VOCAB_PATH}")
-    return ClipBPETokenizer(merges_file=str(VOCAB_PATH))
+    # the merges file the reference vendors, read as a data file of the JAX package;
+    # a missing file raises FileNotFoundError naming the asset
+    return ClipBPETokenizer(merges_file=clip_bpe_vocab_path())
