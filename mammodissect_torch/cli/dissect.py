@@ -48,9 +48,9 @@ from mammodissect_torch.utils.profiling import TRACE_FILE, enable_debug_nans, tr
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Mammo-CLIP Dissect (PyTorch, CUDA)")
-    p.add_argument("--clip_model", type=str, default="breastclip",
+    p.add_argument("--clip_model", type=str, default="random",
                    help="dissector: breastclip | ViT-B/16 etc. | random")
-    p.add_argument("--target_model", type=str, default="breastclip",
+    p.add_argument("--target_model", type=str, default="tiny_cnn",
                    help="target model: breastclip | breastclip_classifier | tiny_cnn | "
                         "ViT-B/16 etc. | clip_rn50 etc.")
     p.add_argument("--target_layers", type=str, default="blocks.0",

@@ -33,14 +33,18 @@
 //     products; out-of-image positions and channel tails are zero-filled (src-size
 //     0), and a chunk runs only the k16 steps it has (Cin = 40 costs 48, not 64).
 //     Rows are padded by 16 bytes, so ldmatrix is free of bank conflicts.
-//   epilogue: BN1 + SiLU in fp32, zeros at out-of-image halo positions (the
-//     depthwise must see SAME zeros, not silu(bn1 bias) of a zero input), rounded
-//     to bf16 as the unfused graph does, into shared memory as bf16 (over the
-//     stages, which are done).
+//   epilogue: BN1 on the fp32 sums (`bn_bf16`), rounded to bf16, then the SiLU as the JAX
+//     package's bf16 program computes it (`silu_bf16`), zeros at out-of-image halo
+//     positions (the depthwise must see SAME zeros, not silu(bn1 bias) of a zero
+//     input), into shared memory as bf16 (over the stages, which are done).
 //   depthwise: two channels a thread (bf16x2), a register window sliding along 6
 //     output columns (each input read once per output row), K*K weights in
-//     registers, fp32 sums, BN2 + SiLU; the output tile is staged in shared
-//     memory and stored as 16-byte vectors.
+//     registers, fp32 sums, BN2 (`bn_bf16`) rounded to bf16, `silu_bf16`; the output tile is
+//     staged in shared memory and stored as 16-byte vectors.
+//   The roundings are the ones XLA's CPU program of the JAX MBConv block makes at
+//   bf16: the convolutions' fp32 sums enter the BatchNorms unrounded (the
+//   BatchNorm promotes them to fp32, which absorbs their rounding), each
+//   BatchNorm's result is rounded, and so is each op of the SiLU.
 // Halo recompute is 18*14/192 = 1.31 of the expand for K = 3, 20*16/192 = 1.67 for
 // K = 5. The tile is 16 x 12 rather than 16 x 16 so that the sums, the epilogue
 // and the depthwise fit 128 registers: two blocks an SM, so that one block's copies
@@ -104,8 +108,29 @@ using bf16 = __nv_bfloat16;
 
 // SiLU by the fast exponential and division: a few fp32 ulps (as accurate as the fp32
 // sums before it); the SiLUs are most of the work past the MMAs, and the accurate
-// expf and IEEE division cost several instructions more
+// expf and IEEE division cost several instructions more. The fp32 path's SiLU.
 __device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The bf16 path's folded BatchNorm: the product and the sum each rounded (not one
+// fma), as the plain version's two torch ops round them
+__device__ __forceinline__ float bn_bf16(float v, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(v, scale), bias);
+}
+
+// The bf16 path's SiLU of a bf16 value a, as XLA computes the JAX package's
+// jax.nn.silu at bf16: exp(-a), 1 + it and its reciprocal each rounded to bf16
+// (the accurate expf and the IEEE reciprocal, so that the float32 results round as
+// XLA's do), a subnormal reciprocal flushed to zero as XLA's CPU backend flushes it;
+// returns the product a * r, which the caller's bf16 store rounds.
+__device__ __forceinline__ float silu_bf16(float a) {
+  const float d = bf16_round(1.0f + bf16_round(expf(-a)));
+  const float r = bf16_round(__frcp_rn(d));
+  return a * (r < 1.17549435e-38f ? 0.0f : r);
+}
 
 // ---------------------------------------------------------------- bf16, tensor cores
 namespace tc {
@@ -283,8 +308,9 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int c = nt * 8 + q2;
-        const float v0 = silu_fast(fmaf(acc[mi][nt][2 * h], s_bn[0][c], s_bn[1][c]));
-        const float v1 = silu_fast(fmaf(acc[mi][nt][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1]));
+        const float v0 = silu_bf16(bf16_round(bn_bf16(acc[mi][nt][2 * h], s_bn[0][c], s_bn[1][c])));
+        const float v1 =
+            silu_bf16(bf16_round(bn_bf16(acc[mi][nt][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1])));
         *reinterpret_cast<__nv_bfloat162*>(es + p * ES + c) =
             inside ? __floats2bfloat162_rn(v0, v1) : __float2bfloat162_rn(0.0f);
       }
@@ -327,7 +353,8 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
             a1 = fmaf(win[dy][dx].y, wk[dy * K + dx].y, a1);
           }
         *reinterpret_cast<__nv_bfloat162*>(os + (r * TW + col0 + j - (K - 1)) * ES + c) =
-            __floats2bfloat162_rn(silu_fast(fmaf(a0, sc0, bi0)), silu_fast(fmaf(a1, sc1, bi1)));
+            __floats2bfloat162_rn(silu_bf16(bf16_round(bn_bf16(a0, sc0, bi0))),
+                                  silu_bf16(bf16_round(bn_bf16(a1, sc1, bi1))));
       }
     }
   }

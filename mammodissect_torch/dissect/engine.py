@@ -76,14 +76,14 @@ from mammodissect_torch.parallel.multihost import comm_device, gather_array
 @dataclass
 class DissectConfig:
     """Flag surface of `describe_broad_neurons.py:15-49`, typed (the JAX package's
-    DissectConfig plus `device`; target and dissector default to breastclip, and the
-    wire to the plain uint8 batch, the H100's choice, PERF.md)."""
+    DissectConfig plus `device`, with its defaults but the wire's: the plain uint8
+    batch, the H100's choice, PERF.md)."""
 
-    target_model: str = "breastclip"
+    target_model: str = "tiny_cnn"
     target_layers: List[str] = field(default_factory=lambda: ["blocks.0"])
     d_probe: str = "synthetic"
     concept_set: str = ""
-    clip_model: str = "breastclip"
+    clip_model: str = "random"
     batch_size: int = 200
     pool_mode: str = "avg"
     similarity_fn: str = "soft_wpmi"

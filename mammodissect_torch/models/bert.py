@@ -18,17 +18,18 @@ the backward (`torch.utils.checkpoint`, the counterpart of the JAX module's
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mammodissect_torch.models.layers import Embedding, LayerNorm, Linear, attend
+from mammodissect_torch.models.layers import Embedding, LayerNorm, Linear, attend, gelu
+from mammodissect_torch.ops.activations import xla_bf16
 
 
 class BertEmbeddings(nn.Module):
     """Word + position + token-type embeddings, each looked up in the compute dtype
     (`layers.Embedding`, flax's `nn.Embed(dtype=...)`) and summed in it, then
-    LayerNorm."""
+    LayerNorm (in bf16 inference the last sum unrounded, as XLA computes the JAX
+    module)."""
 
     def __init__(self, vocab_size, hidden_size, max_position_embeddings, type_vocab_size,
                  layer_norm_eps):
@@ -40,9 +41,12 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
-             + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(x)
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        typ = self.token_type_embeddings(token_type_ids)
+        if xla_bf16(x):
+            # the LayerNorm's float32 upcast absorbs the last sum's rounding (XLA)
+            return self.LayerNorm(x.float() + typ.float())
+        return self.LayerNorm(x + typ)
 
 
 class BertSelfAttention(nn.Module):
@@ -71,7 +75,7 @@ class BertSelfOutput(nn.Module):
         self.LayerNorm = LayerNorm(hidden_size, eps=layer_norm_eps)
 
     def forward(self, h, residual):
-        return self.LayerNorm(residual + self.dense(h))
+        return self.LayerNorm(residual + self.dense(h, sum_f32=True))
 
 
 class BertAttention(nn.Module):
@@ -90,7 +94,7 @@ class BertIntermediate(nn.Module):
         self.dense = Linear(hidden_size, intermediate_size)
 
     def forward(self, x):
-        return F.gelu(self.dense(x))
+        return gelu(self.dense(x))
 
 
 class BertOutput(nn.Module):
@@ -100,7 +104,7 @@ class BertOutput(nn.Module):
         self.LayerNorm = LayerNorm(hidden_size, eps=layer_norm_eps)
 
     def forward(self, h, residual):
-        return self.LayerNorm(residual + self.dense(h))
+        return self.LayerNorm(residual + self.dense(h, sum_f32=True))
 
 
 class BertLayer(nn.Module):

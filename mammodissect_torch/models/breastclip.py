@@ -58,6 +58,7 @@ from mammodissect_torch.models.layers import (
 from mammodissect_torch.models.swin import SwinEncoder, init_swin_weights
 from mammodissect_torch.models.vit_encoder import ViTImageEncoder, init_vit_weights
 from mammodissect_torch.models.tokenizers import WordPieceTokenizer
+from mammodissect_torch.ops.activations import xla_bf16
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
 from mammodissect_torch.parallel.mesh import active_data_group, group_rank_and_size
 
@@ -156,12 +157,21 @@ class BreastClipModule(nn.Module):
         return (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1e-9)
 
     @staticmethod
-    def _l2n(emb: torch.Tensor) -> torch.Tensor:
+    def _l2n(emb: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+        """Rows over their L2 norm. A bf16 embedding in inference as XLA compiles the
+        JAX package's `emb / jnp.linalg.norm(emb)`: the squares summed in float32 (the
+        sum's float32 upcast absorbs the squares' rounding), the sum and its root
+        rounded to bf16, the quotient rounded (`rounded=False`: left in float32, as
+        when the program casts it to float32). Otherwise in float32."""
+        if xla_bf16(emb):
+            norm = torch.sqrt(emb.float().square().sum(dim=1, keepdim=True).to(emb.dtype))
+            return emb / norm if rounded else emb.float() / norm.float()
         return emb / torch.linalg.vector_norm(emb.float(), dim=1, keepdim=True)
 
-    def project_image(self, feats: torch.Tensor,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self._l2n(self.image_projection(feats, generator))
+    def project_image(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      rounded: bool = True) -> torch.Tensor:
+        """Projected, L2-normalized image embeddings (`rounded`: as `_l2n`)."""
+        return self._l2n(self.image_projection(feats, generator), rounded)
 
     def project_text(self, feats: torch.Tensor,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -293,14 +303,15 @@ class BreastClip:
         return capture, names, widths
 
     def _encode_u8(self, u8: torch.Tensor, capture: Sequence[int], pool_mode: str,
-                   mean: float, std: float):
+                   mean: float, std: float, rounded: bool = True):
         """uint8 batch on the device -> ({"blocks.i": pooled}, projected embedding):
-        min-max + mean/std on the device, one tower forward."""
+        min-max + mean/std on the device, one tower forward (`rounded`: as
+        `BreastClipModule._l2n`)."""
         x = u8_minmax_meanstd(u8, mean, std)
         if not capture:
-            return {}, self.module.project_image(self.module.encode_image(x))
+            return {}, self.module.project_image(self.module.encode_image(x), rounded=rounded)
         pooled, captured = self.module.encode_image(x, capture=capture, pool_mode=pool_mode)
-        return captured, self.module.project_image(pooled)
+        return captured, self.module.project_image(pooled, rounded=rounded)
 
     @torch.inference_mode()
     def encode_image(self, images) -> np.ndarray:
@@ -358,7 +369,9 @@ class BreastClip:
             u8 = decode(*wire)
             if tuple(u8.shape) != shape:
                 raise ValueError(f"resident step built for {shape}, got {tuple(u8.shape)}")
-            captured, emb = self._encode_u8(u8, capture, pool_mode, mean, std)
+            # the JAX step casts the embedding to float32 inside its program, which
+            # absorbs the quotient's rounding at bf16
+            captured, emb = self._encode_u8(u8, capture, pool_mode, mean, std, rounded=False)
             rows = slice(offset, offset + shape[0])
             col = 0
             for name, w in zip(names, widths):

@@ -52,12 +52,14 @@ from mammodissect_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
     GeM,
+    SqueezeExcite,
     drop_connect,
     drop_connect_mask,
     round_filters,
     round_repeats,
-    squeeze_excite,
+    silu,
 )
+from mammodissect_torch.ops.activations import xla_bf16
 from mammodissect_torch.ops.cuda_mbconv import fold_bn, fused_expand_dw
 from mammodissect_torch.ops.pooling import pool_activation
 
@@ -153,6 +155,24 @@ def _pad(x: torch.Tensor, pad: Pad2d) -> torch.Tensor:
     return F.pad(x, (l, r, t, b)) if (t or b or l or r) else x
 
 
+def _xla_rounding(conv: Conv2d, bn: BatchNorm2d) -> bool:
+    """Whether conv -> BN runs as XLA compiles the JAX package's bf16 program: bf16
+    compute in inference. Training keeps cuDNN's bf16 convolutions, rounded: their
+    float32 outputs would double the activations saved for the backward."""
+    return (conv.compute_dtype or conv.weight.dtype) == torch.bfloat16 \
+        and not bn.training and not torch.is_grad_enabled()
+
+
+def _conv_bn(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """conv -> BatchNorm. At bf16 in inference, as XLA's CPU backend compiles the JAX
+    package's program: the BatchNorm promotes its input to float32, which absorbs
+    the rounding of the convolution's float32 sums (XLA's excess precision), so the
+    sums enter it unrounded; its result is rounded to bf16."""
+    if _xla_rounding(conv, bn):
+        return bn(conv(x, sum_f32=True)).to(torch.bfloat16)
+    return bn(conv(x))
+
+
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck: expand (1x1) -> depthwise (kxk) -> SE -> project
     (1x1), skip + drop-connect when stride 1 and channels match
@@ -176,9 +196,11 @@ class MBConvBlock(nn.Module):
         self._bn1 = bn(c_exp)
         self.has_se = bool(args.se_ratio) and 0 < args.se_ratio <= 1
         if self.has_se:
-            n_sq = max(1, int(c_in * args.se_ratio))
-            self._se_reduce = Conv2d(c_exp, n_sq, 1)
-            self._se_expand = Conv2d(n_sq, c_exp, 1)
+            se = SqueezeExcite(c_exp, max(1, int(c_in * args.se_ratio)))
+            # its convs are registered here, under the reference's keys
+            # (`_blocks.i._se_reduce`), and the gate is held outside the module tree
+            self._se_reduce, self._se_expand = se._se_reduce, se._se_expand
+            object.__setattr__(self, "_se", se)
         self._project_conv = Conv2d(c_exp, args.output_filters, 1, bias=False)
         self._bn2 = bn(args.output_filters)
         # the fused front half covers what the Pallas kernel covered: stride 1 with
@@ -247,11 +269,12 @@ class MBConvBlock(nn.Module):
         return fused_expand_dw(x_nhwc, w_exp, s1, b1, w_dw, s2, b2).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, padding: Pad2d, drop_rate: float = 0.0,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None, capture: bool = False):
         """`keep`: the drop-connect keep mask [B, 1, 1, 1] of a training forward,
         drawn by the caller (None keeps every sample). In training the front half is
         unfused: the fused one folds the BatchNorms' running statistics, and
-        training normalizes by batch statistics."""
+        training normalizes by batch statistics. With `capture`, returns (output,
+        the float32 tensor a capture pools: `_residual`)."""
         ba = self.args
         inp = x
         if self.fused_front and not self.training:
@@ -259,16 +282,17 @@ class MBConvBlock(nn.Module):
             if padding != ((p, p), (p, p)):
                 raise ValueError(f"stride-1 depthwise padding {padding} is not SAME")
             x = self._front_fused(x)
+            unrounded = None
         else:
             if ba.expand_ratio != 1:
-                x = F.silu(self._bn0(self._expand_conv(x)))
-            x = F.silu(self._bn1(self._depthwise_conv(_pad(x, padding))))
+                x = silu(_conv_bn(self._expand_conv, self._bn0, x))
+            x = _conv_bn(self._depthwise_conv, self._bn1, _pad(x, padding))
+            unrounded = silu(x, rounded=False) if self.has_se and xla_bf16(x) else None
+            x = silu(x)
         if self.has_se:
-            x = squeeze_excite(x, self._se_reduce, self._se_expand)
-        x = self._bn2(self._project_conv(x))
-        if self.residual:
-            x = drop_connect(x, drop_rate, keep) + inp
-        return x
+            x = self._se(x, unrounded)
+        x = _conv_bn(self._project_conv, self._bn2, x)
+        return _residual(self, x, inp, drop_rate, keep, capture)
 
 
 class FusedMBConvBlock(nn.Module):
@@ -298,17 +322,32 @@ class FusedMBConvBlock(nn.Module):
         self.residual = args.id_skip and args.stride == 1 and c_in == c_out
 
     def forward(self, x: torch.Tensor, padding: Pad2d, drop_rate: float = 0.0,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`padding` is the k x k conv's; `keep` as in `MBConvBlock.forward`."""
+                keep: Optional[torch.Tensor] = None, capture: bool = False):
+        """`padding` is the k x k conv's; `keep` and `capture` as in
+        `MBConvBlock.forward`."""
         inp = x
         if self.args.expand_ratio != 1:
-            x = F.silu(self._bn0(self._expand_conv(_pad(x, padding))))
-            x = self._bn2(self._project_conv(x))
+            x = silu(_conv_bn(self._expand_conv, self._bn0, _pad(x, padding)))
+            x = _conv_bn(self._project_conv, self._bn2, x)
         else:
-            x = F.silu(self._bn2(self._project_conv(_pad(x, padding))))
-        if self.residual:
-            x = drop_connect(x, drop_rate, keep) + inp
-        return x
+            x = silu(_conv_bn(self._project_conv, self._bn2, _pad(x, padding)))
+        return _residual(self, x, inp, drop_rate, keep, capture)
+
+
+def _residual(block, x, inp, drop_rate, keep, capture):
+    """A block's skip connection (when it has one) and, with `capture`, the float32
+    tensor its capture pools: at bf16 in inference the residual sum unrounded, as
+    XLA computes it for the JAX package's capture (its float32 cast absorbs the
+    sum's rounding), else the output."""
+    if not block.residual:
+        return (x, x.float()) if capture else x
+    branch = drop_connect(x, drop_rate, keep)
+    out = branch + inp
+    if not capture:
+        return out
+    if xla_bf16(out) and not block.training:
+        return out, branch.float() + inp.float()
+    return out, out.float()
 
 
 @contextlib.contextmanager
@@ -412,9 +451,12 @@ class EfficientNet(nn.Module):
         return stem_pad, tuple(pads)
 
     def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, head_f32: bool = False):
         """`generator` draws the drop-connect masks of a training forward (on x's
-        device; None: torch's default generator)."""
+        device; None: torch's default generator). `head_f32`: at bf16 in inference
+        the features come out as the head SiLU's last product unrounded, in float32
+        (what XLA's program pools when the JAX package casts the features to
+        float32 for pooling)."""
         stem_pad, block_pads = self._paddings((int(x.shape[1]), int(x.shape[2])))
         x = x.permute(0, 3, 1, 2)  # NHWC buffer viewed as NCHW channels_last
         # grayscale -> in_channels copies (the reference feeds PIL-RGB copies of the
@@ -422,7 +464,7 @@ class EfficientNet(nn.Module):
         if x.shape[1] == 1 and self.in_channels > 1:
             x = x.expand(-1, self.in_channels, -1, -1)
         x = x.contiguous(memory_format=torch.channels_last)
-        x = F.silu(self._bn0(self._conv_stem(_pad(x, stem_pad))))
+        x = silu(_conv_bn(self._conv_stem, self._bn0, _pad(x, stem_pad)))
         captured: Dict[str, torch.Tensor] = {}
         n_blocks = len(self._blocks)
         remat = self.remat and torch.is_grad_enabled()
@@ -438,12 +480,17 @@ class EfficientNet(nn.Module):
                                preserve_rng_state=False,
                                context_fn=lambda b=block: (contextlib.nullcontext(),
                                                            _running_stats_frozen(b)))
+                if i in capture:
+                    captured[f"blocks.{i}"] = pool_activation(x.float(), pool_mode)
+            elif i in capture:
+                x, pooled = block(x, block_pads[i], rate, keep, capture=True)
+                captured[f"blocks.{i}"] = pool_activation(pooled, pool_mode)
             else:
                 x = block(x, block_pads[i], rate, keep)
-            if i in capture:
-                captured[f"blocks.{i}"] = pool_activation(x.float(), pool_mode)
-        x = F.silu(self._bn1(self._conv_head(x)))
-        return x, captured
+        x = _conv_bn(self._conv_head, self._bn1, x)
+        if head_f32 and _xla_rounding(self._conv_head, self._bn1):
+            return silu(x, rounded=False), captured
+        return silu(x), captured
 
 
 class EfficientNetMammo(EfficientNet):
@@ -465,7 +512,7 @@ class EfficientNetMammo(EfficientNet):
     def forward(self, x: torch.Tensor, capture: Sequence[int] = (), pool_mode: str = "avg",
                 generator: Optional[torch.Generator] = None):
         features, captured = super().forward(x, capture=capture, pool_mode=pool_mode,
-                                             generator=generator)
+                                             generator=generator, head_f32=True)
         if self.pooling == "gem":
             return self.pool(features), captured
         return features.float().mean(dim=(2, 3)), captured

@@ -1,8 +1,12 @@
 """Shared NN building blocks (counterpart of `mammodissect/models/layers.py`).
 
 - round_filters / round_repeats: EfficientNet width/depth rounding.
-- squeeze_excite: the SE gate of an MBConv block. Its convs live on the block as
-  `_se_reduce` / `_se_expand`, the reference's state-dict names.
+- silu / sigmoid / gelu (`ops/activations.py`): in bf16 inference the JAX
+  package's rounded op chains (`jax.nn.silu`, `jax.nn.sigmoid`, exact
+  `jax.nn.gelu`), bit for bit; otherwise the single torch ops.
+- SqueezeExcite: the SE gate of an MBConv block, its convs `_se_reduce` /
+  `_se_expand` (the reference's state-dict names, which `MBConvBlock` keeps as its
+  own).
 - drop_connect_mask / drop_connect: per-sample stochastic depth on the residual
   branch, the keep mask drawn from an explicit torch.Generator.
 - BatchNorm2d / LayerNorm: normalization computed in float32 whatever the
@@ -16,7 +20,9 @@
   from the step's generator and sliced by rank.
 - Linear / Conv2d: compute in `compute_dtype`, by default their weight's dtype;
   the input, weight and bias are cast at use (flax's `dtype=` over `param_dtype=`:
-  float32 master weights with bf16 compute in fine-tuning).
+  float32 master weights with bf16 compute in fine-tuning). In bf16 inference a
+  bias is added after the product is rounded, as flax's `Dense` and `Conv` add it:
+  two roundings.
 - attend: plain attention (scores scaled after q.k^T, softmax in float32), shared
   by the CLIP ViT blocks, the ModifiedResNet attention pool and the HF ViT encoder.
 - GeM, LinearProjectionHead, MLPProjectionHead (its dropout, `dropout`, flax's rule
@@ -38,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mammodissect_torch.ops.activations import gelu, sigmoid, silu, xla_bf16
 from mammodissect_torch.ops.pooling import gem_pool
 from mammodissect_torch.parallel.collectives import all_gather, psum
 from mammodissect_torch.parallel.mesh import active_data_group, group_rank_and_size
@@ -108,27 +115,55 @@ def drop_connect(x: torch.Tensor, rate: float, keep: torch.Tensor | None) -> tor
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that computes in `compute_dtype` (None: its weight's dtype, so a
-    module moved with `.to()` follows); the input, weight and bias are cast at use."""
+    module moved with `.to()` follows); the input, weight and bias are cast at use.
+    In bf16 inference the bias is added to the rounded product (flax's `Conv`)."""
 
     compute_dtype: torch.dtype | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sum_f32: bool = False) -> torch.Tensor:
+        """`sum_f32` (a conv without bias): the input and weight in the compute dtype,
+        summed and returned in float32, unrounded, as XLA computes the JAX package's
+        bf16 convolution whose result is promoted to float32. On the GPU a 1x1 conv
+        is then a GEMM of the compute dtype with float32 output on the tensor cores
+        (its NHWC memory, channels_last, is the GEMM's row-major input)."""
         dtype = self.compute_dtype or self.weight.dtype
-        if dtype == self.weight.dtype:
-            return super().forward(x.to(dtype))
+        if sum_f32 and self.bias is None:
+            if x.is_cuda and self._is_pointwise():
+                n, _, h, w = x.shape
+                rows = x.to(dtype).permute(0, 2, 3, 1).reshape(-1, self.in_channels)
+                out = torch.mm(rows, self.weight.to(dtype).reshape(self.out_channels, -1).t(),
+                               out_dtype=torch.float32)
+                return out.reshape(n, h, w, self.out_channels).permute(0, 3, 1, 2)
+            return self._conv_forward(x.to(dtype).float(), self.weight.to(dtype).float(), None)
         bias = None if self.bias is None else self.bias.to(dtype)
+        if bias is not None and xla_bf16(bias):
+            return self._conv_forward(x.to(dtype), self.weight.to(dtype), None) \
+                + bias[:, None, None]
         return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
+    def _is_pointwise(self) -> bool:
+        return (self.kernel_size == (1, 1) and self.stride == (1, 1) and self.groups == 1
+                and self.dilation == (1, 1) and self.padding in ((0, 0), "valid"))
 
 
 class Linear(nn.Linear):
     """nn.Linear that computes in `compute_dtype` (None: its weight's dtype); the
-    input, weight and bias are cast at use."""
+    input, weight and bias are cast at use. In bf16 inference the bias is added to
+    the rounded product (flax's `Dense`)."""
 
     compute_dtype: torch.dtype | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sum_f32: bool = False) -> torch.Tensor:
+        """`sum_f32` (bf16 inference, with a bias): the rounded product plus the bias,
+        summed in float32 and left unrounded, as XLA computes the JAX package's dense layer
+        whose output is added to a float32 tensor (the promotion absorbs the sum's
+        rounding)."""
         dtype = self.compute_dtype or self.weight.dtype
         bias = None if self.bias is None else self.bias.to(dtype)
+        if bias is not None and xla_bf16(bias):
+            product = F.linear(x.to(dtype), self.weight.to(dtype))
+            return product.float() + bias.float() if sum_f32 else product + bias
         return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
@@ -245,12 +280,26 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, x_dtype: torch.dty
     return probs.to(ctx_dtype) @ v.to(ctx_dtype)
 
 
-def squeeze_excite(x: torch.Tensor, se_reduce: nn.Module, se_expand: nn.Module) -> torch.Tensor:
+class SqueezeExcite(nn.Module):
     """SE gate over NCHW (reference `efficientnet_custom.py:84-96`): global average ->
-    1x1 reduce -> SiLU -> 1x1 expand -> sigmoid gate."""
-    s = x.mean(dim=(2, 3), keepdim=True)
-    s = se_expand(F.silu(se_reduce(s)))
-    return x * torch.sigmoid(s)
+    1x1 reduce -> SiLU -> 1x1 expand -> sigmoid gate; `channels` in and out,
+    `num_squeezed` between."""
+
+    def __init__(self, channels: int, num_squeezed: int):
+        super().__init__()
+        self._se_reduce = Conv2d(channels, num_squeezed, 1)
+        self._se_expand = Conv2d(num_squeezed, channels, 1)
+
+    def forward(self, x: torch.Tensor, unrounded: torch.Tensor | None = None) -> torch.Tensor:
+        """`unrounded` (bf16 x): x before its rounding to bf16, in float32. XLA's
+        program of the JAX package averages that (the mean's float32 accumulation
+        absorbs the SiLU product's rounding), the sum times 1 / (H W)."""
+        if xla_bf16(x):
+            src = x.float() if unrounded is None else unrounded
+            s = (src.sum(dim=(2, 3), keepdim=True) * (1.0 / (x.shape[2] * x.shape[3]))).to(x.dtype)
+        else:
+            s = x.mean(dim=(2, 3), keepdim=True)
+        return x * sigmoid(self._se_expand(silu(self._se_reduce(s))))
 
 
 class GeM(nn.Module):
@@ -303,7 +352,7 @@ class MLPProjectionHead(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         projected = self.projection(x)
-        h = dropout(self.fc(F.gelu(projected)), self.rate, self.training, generator)
+        h = dropout(self.fc(gelu(projected)), self.rate, self.training, generator)
         return self.layer_norm(h + projected)
 
 

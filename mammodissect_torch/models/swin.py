@@ -39,6 +39,7 @@ from mammodissect_torch.models.layers import (
     HFDense,
     LayerNorm,
     Linear,
+    gelu,
     init_weights,
     same_pad_patches,
 )
@@ -150,7 +151,7 @@ class SwinBlock(nn.Module):
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x = x + y[:, :h, :w]
-        z = F.gelu(self.intermediate.dense(self.layernorm_after(x)))
+        z = gelu(self.intermediate.dense(self.layernorm_after(x)))
         return x + self.output.dense(z)
 
 

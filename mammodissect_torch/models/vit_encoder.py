@@ -44,6 +44,7 @@ from mammodissect_torch.models.layers import (
     LayerNorm,
     Linear,
     attend,
+    gelu,
     init_weights,
     same_pad_patches,
 )
@@ -84,7 +85,7 @@ class ViTLayer(nn.Module):
                    for m in (sa.query, sa.key, sa.value))
         ctx = attend(q, k, v, x.dtype).transpose(1, 2).reshape(b, t, d)
         x = x + self.attention.output.dense(ctx)
-        h = F.gelu(self.intermediate.dense(self.layernorm_after(x)))
+        h = gelu(self.intermediate.dense(self.layernorm_after(x)))
         return x + self.output.dense(h)
 
 

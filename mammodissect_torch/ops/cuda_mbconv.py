@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from mammodissect_torch.ops import kernels
+from mammodissect_torch.ops.activations import silu_chain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,20 +38,40 @@ def fold_bn(weight, bias, running_mean, running_var, eps: float = 1e-3):
 def expand_dw_plain(x: torch.Tensor, w_exp: torch.Tensor, bn1_scale: torch.Tensor,
                     bn1_bias: torch.Tensor, w_dw: torch.Tensor, bn2_scale: torch.Tensor,
                     bn2_bias: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: inputs and weights of x's dtype,
-    computed in float32 (`F.conv2d` 1x1 -> BN -> SiLU -> round to x's dtype ->
-    `F.pad` + depthwise `F.conv2d` -> BN -> SiLU), result in x's dtype."""
+    """The kernel's arithmetic in plain PyTorch: inputs and weights of x's dtype, the
+    convolutions summed in float32 (`F.conv2d` 1x1 expand, `F.pad` + depthwise
+    `F.conv2d`), result in x's dtype.
+
+    float32: expand -> BN -> SiLU -> depthwise -> BN -> SiLU, all in float32.
+    bf16: the JAX MBConv block's front half as XLA compiles it at bf16: each
+    convolution's float32 sums enter its BatchNorm unrounded (the BatchNorm's
+    float32 promotion absorbs their rounding), the BatchNorm's result is rounded,
+    then the SiLU's op chain rounds each op (`ops.activations.silu_chain`); the depthwise
+    reads the bf16 tile. On the GPU the bf16 expand is a bf16 GEMM with float32 sums
+    on the tensor cores (`torch.mm`'s out_dtype), the kernel's arithmetic: the two
+    then agree bit for bit (measured at every B5 shape on the H100, PERF.md)."""
     dtype = x.dtype
     k = w_dw.shape[0]
-    cin, cexp = w_exp.shape
+    b, h, w, cin = x.shape
+    cexp = w_exp.shape[1]
     pad = (k - 1) // 2
-    xc = x.float().permute(0, 3, 1, 2)  # NCHW view
-    e = F.conv2d(xc, w_exp.float().t().reshape(cexp, cin, 1, 1))
-    e = F.silu(e * bn1_scale[:, None, None] + bn1_bias[:, None, None])
+    if dtype == torch.bfloat16 and x.is_cuda:
+        e = torch.mm(x.reshape(-1, cin), w_exp, out_dtype=torch.float32)
+        e = e.reshape(b, h, w, cexp).permute(0, 3, 1, 2)
+    else:
+        e = F.conv2d(x.float().permute(0, 3, 1, 2), w_exp.float().t().reshape(cexp, cin, 1, 1))
+    w_dw = w_dw.float().permute(2, 0, 1).reshape(cexp, 1, k, k)
+    s1, b1 = bn1_scale[:, None, None], bn1_bias[:, None, None]
+    s2, b2 = bn2_scale[:, None, None], bn2_bias[:, None, None]
+    if dtype == torch.bfloat16:
+        e = silu_chain((e * s1 + b1).to(dtype))
+        dw = F.conv2d(F.pad(e.float(), (pad, pad, pad, pad)), w_dw, groups=cexp)
+        y = silu_chain((dw * s2 + b2).to(dtype))
+        return y.permute(0, 2, 3, 1).contiguous()
+    e = F.silu(e * s1 + b1)
     e = e.to(dtype).float()  # the unfused graph stores the expanded tensor in dtype
-    e = F.pad(e, (pad, pad, pad, pad))
-    dw = F.conv2d(e, w_dw.float().permute(2, 0, 1).reshape(cexp, 1, k, k), groups=cexp)
-    y = F.silu(dw * bn2_scale[:, None, None] + bn2_bias[:, None, None])
+    dw = F.conv2d(F.pad(e, (pad, pad, pad, pad)), w_dw, groups=cexp)
+    y = F.silu(dw * s2 + b2)
     return y.to(dtype).permute(0, 2, 3, 1).contiguous()
 
 

@@ -30,6 +30,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from mammodissect_torch.ops.activations import xla_bf16
 from mammodissect_torch.parallel.collectives import _sum, all_gather
 from mammodissect_torch.parallel.mesh import model_group
 
@@ -141,21 +142,25 @@ class ParallelLinear(nn.Module):
 
         self.weight, self.bias = shard("weight"), shard("bias")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sum_f32: bool = False) -> torch.Tensor:
+        """`sum_f32` as `layers.Linear`'s; in bf16 inference the bias is added to the
+        rounded product, as there."""
         dtype = self.compute_dtype or self.weight.dtype
         w = self.weight.to(dtype)
         bias = None if self.bias is None else self.bias.to(dtype)
+        bf16 = xla_bf16(w)
         if self.kind == ROW:
-            return _add(reduce_from_model(F.linear(x.to(dtype), w), self.group), bias)
-        y = F.linear(copy_to_model(x.to(dtype), self.group), w,
-                     bias if self.kind == COLUMN else None)
-        if self.kind == COLUMN_GATHER:
-            y = _add(_GatherFromModel.apply(y, self.group), bias)
-        return y
-
-
-def _add(y, bias):
-    return y if bias is None else y + bias
+            y = reduce_from_model(F.linear(x.to(dtype), w), self.group)
+        else:
+            fused = self.kind == COLUMN and not bf16
+            y = F.linear(copy_to_model(x.to(dtype), self.group), w, bias if fused else None)
+            if fused:
+                return y
+            if self.kind == COLUMN_GATHER:
+                y = _GatherFromModel.apply(y, self.group)
+        if bias is None:
+            return y
+        return y.float() + bias.float() if sum_f32 and bf16 else y + bias
 
 
 class VocabParallelEmbedding(nn.Module):

@@ -84,16 +84,17 @@ def class_balanced_weights(labels: np.ndarray, sampler_weights: Optional[dict] =
 
 
 def iter_epoch(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-               balanced_weights: Optional[np.ndarray] = None,
+               balanced_weights: Optional[np.ndarray] = None, drop_last: bool = False,
                label_dtype=np.float32, host_index: int = 0,
                host_count: int = 1) -> Iterator[HostBatch]:
     """One epoch of fixed-size batches. With `balanced_weights`, len(dataset) indices
     drawn with replacement in proportion to them (WeightedRandomSampler,
     `dataset_utils.py:202-234`). The tail batch is wrap-padded with real rows (not
     zeros, which would enter BatchNorm's batch statistics as fake negatives) and
-    reports its `n_valid`. `host_index`/`host_count` give each process its
-    contiguous, equally long, wrap-padded slice of the same seeded order
-    (DistributedSampler, `dataset_utils.py:236-251`)."""
+    reports its `n_valid`; with `drop_last` a short tail is dropped instead.
+    `host_index`/`host_count` give each process its contiguous, equally long,
+    wrap-padded slice of the same seeded order (DistributedSampler,
+    `dataset_utils.py:236-251`)."""
     n = len(dataset)
     rng = np.random.default_rng(seed)
     if balanced_weights is not None:
@@ -111,6 +112,8 @@ def iter_epoch(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
     img_dtype = np.uint8 if getattr(dataset, "wire", "f32") == "u8" else np.float32
     for start in range(0, n, batch_size):
         idx = order[start: start + batch_size]
+        if drop_last and len(idx) < batch_size:
+            return
         n_valid = len(idx)
         if n_valid < batch_size:
             idx = np.resize(idx, batch_size)

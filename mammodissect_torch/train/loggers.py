@@ -12,11 +12,12 @@ from mammodissect_torch.parallel.mesh import is_master
 
 
 class MasterOnlyWriter:
-    """TensorBoard scalars through torch.utils.tensorboard."""
+    """TensorBoard scalars through torch.utils.tensorboard (none without `log_dir`
+    or with `enabled` False)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: Optional[str] = None, enabled: bool = True):
         self._writer = None
-        if not is_master():
+        if not enabled or log_dir is None or not is_master():
             return
         try:
             from torch.utils.tensorboard import SummaryWriter
@@ -39,10 +40,10 @@ class WandbLogger:
     and 'broader_clip-dissect'); disabled when wandb is missing or its offline init
     fails."""
 
-    def __init__(self, project: str, config: Optional[dict] = None, enabled: bool = False,
-                 name: Optional[str] = None):
+    def __init__(self, project: Optional[str] = None, name: Optional[str] = None,
+                 config: Optional[dict] = None, enabled: bool = False):
         self._run = None
-        if not enabled or not is_master():
+        if not enabled or project is None or not is_master():
             return
         try:
             import wandb

@@ -1,7 +1,8 @@
 """Learning-rate schedule (counterpart of `mammodissect/train/schedule.py`): the
 reference's `LinearWarmupCosineAnnealingLR` (`Classifiers/experiments.py:150-156`):
-linear warmup from 0 to `base_lr` over `warmup_steps`, then cosine annealing to 0
-over the remaining steps (the reference's warmup_start_lr and eta_min, both 0).
+linear warmup from `warmup_start_lr` to `base_lr` over `warmup_steps`, then cosine
+annealing to `eta_min` over the remaining steps (the reference passes neither: both
+0).
 
 `linear_warmup_cosine_annealing` returns the function step -> lr; `lr_scheduler`
 drives an optimizer with it through `LambdaLR`, stepped once after each
@@ -15,20 +16,25 @@ from typing import Callable
 import torch
 
 
-def linear_warmup_cosine_annealing(base_lr: float, warmup_steps: int,
-                                   total_steps: int) -> Callable[[int], float]:
+def linear_warmup_cosine_annealing(base_lr: float, warmup_steps: int, total_steps: int,
+                                   warmup_start_lr: float = 0.0,
+                                   eta_min: float = 0.0) -> Callable[[int], float]:
     """optax's join_schedules([linear_schedule, cosine_decay_schedule]) as the JAX
-    package builds it, in float64."""
+    package builds it, in float64: linear from `warmup_start_lr` to `base_lr` over
+    `warmup_steps`, then cosine to `eta_min` (optax's alpha = eta_min / base_lr, 0
+    when base_lr is 0) over the remaining steps."""
     warmup_steps = max(int(warmup_steps), 0)
     decay_steps = max(int(total_steps) - warmup_steps, 1)
+    alpha = eta_min / base_lr if base_lr else 0.0
 
     # optax's own expressions, so the float64 values agree to the last bit
     def lr_at(step: int) -> float:
         if step < warmup_steps:
             frac = 1.0 - min(max(step, 0), warmup_steps) / warmup_steps
-            return -base_lr * frac + base_lr
+            return (warmup_start_lr - base_lr) * frac + base_lr
         count = min(step - warmup_steps, decay_steps)
-        return base_lr * (0.5 * (1.0 + math.cos(math.pi * count / decay_steps)))
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return base_lr * ((1.0 - alpha) * cosine + alpha)
 
     return lr_at
 

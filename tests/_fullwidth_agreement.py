@@ -10,11 +10,15 @@ images at 1520x912, on a seeded random Mammo-CLIP checkpoint. Three references:
   mammo_calibrated  the `mammo_png` probe on the calibrated weights: the drawn ones
                     with the image tower's BatchNorm statistics taken from data
                     (`calibrate`, committed as `bn_stats_calibrated.npz`)
+  mammo_calibrated_bf16
+                    mammo_calibrated with the bf16 model
+                    (`--dissector_kwargs '{"dtype": "bfloat16"}'`): the reference of
+                    the flagship's bf16 tower
 
 With the drawn statistics the tower's deep blocks and its embedding do not depend on
 the image beyond float32 rounding, so every soft-WPMI score of the two drawn
 references is 0 within a few ulps and their top concepts are near-ties (PERF.md).
-The calibrated weights keep the image through all 39 blocks: the reference the 0.99
+The calibrated weights keep the image through all 39 blocks: the references the 0.99
 top-1 bar is held on.
 
     python tests/_fullwidth_agreement.py weights [--weights drawn|calibrated] [--seed 0]
@@ -25,9 +29,13 @@ top-1 bar is held on.
         prints how far the tower's activations and embedding depend on the image
     python tests/_fullwidth_agreement.py jax --ref REF
         runs the JAX package's dissect CLI for a reference on the CPU (about 18 min on
-        8 cores), after proving that every tensor of the `.tar` landed in the JAX
-        variables, and writes the gzipped CSV and the reference's manifest entry to
-        tests/assets/fullwidth/
+        8 cores, fp32 or bf16), after proving that every tensor of the `.tar` landed
+        in the JAX variables, and writes the gzipped CSV and the reference's manifest
+        entry to tests/assets/fullwidth/
+    python tests/_fullwidth_agreement.py jax-spread --ref REF
+        the same JAX run with every BatchNorm scale of the image tower one float32 ulp
+        higher, compared with the committed CSV (nothing committed): the agreement
+        the JAX program keeps with itself under a float32-level change
     python tests/_fullwidth_agreement.py compare A.csv[.gz] B.csv[.gz]
         prints the agreement of two dissection CSVs (`compare_csvs`)
     python tests/_fullwidth_agreement.py port-cpu --ref REF
@@ -64,7 +72,11 @@ WEIGHTS = ("drawn", "calibrated")
 # each JAX reference: (probe, weights)
 REFERENCES = {"noise_drawn": ("synthetic_u8", "drawn"),
               "mammo_drawn": ("mammo_png", "drawn"),
-              "mammo_calibrated": ("mammo_png", "calibrated")}
+              "mammo_calibrated": ("mammo_png", "calibrated"),
+              "mammo_calibrated_bf16": ("mammo_png", "calibrated")}
+BF16_ARGS = ("--dissector_kwargs", '{"dtype": "bfloat16"}')
+# the CLI arguments a reference adds to the agreement run's (fp32 without)
+REFERENCE_ARGS = {"mammo_calibrated_bf16": BF16_ARGS}
 
 SEED = 0
 N_BLOCKS = 39
@@ -103,10 +115,15 @@ def dissect_args(probe: str, ckpt: str, result_dir: str, activation_dir: str,
             "--result_dir", result_dir, "--activation_dir", activation_dir]
 
 
+def reference_args(ref: str) -> list:
+    """The dissect CLI's arguments of a reference, with placeholders for paths."""
+    return [*dissect_args(REFERENCES[ref][0], "<tar>", "<result_dir>", "<activation_dir>"),
+            *REFERENCE_ARGS.get(ref, ())]
+
+
 def manifest_cli(ref: str) -> str:
     """The JAX CLI's command line of a reference, with placeholders for paths."""
-    return "python -m mammodissect.cli.dissect " + " ".join(
-        dissect_args(REFERENCES[ref][0], "<tar>", "<result_dir>", "<activation_dir>"))
+    return "python -m mammodissect.cli.dissect " + " ".join(reference_args(ref))
 
 
 # ------------------------------------------------------------------ the mammo_png probe
@@ -378,10 +395,12 @@ def _newest_csv(result_dir: Path) -> Path:
     return csvs[-1]
 
 
-def cmd_jax(ref: str, seed: int = SEED):
+def cmd_jax(ref: str, seed: int = SEED, spread: bool = False):
     """A JAX reference on the CPU: the CLI in this process, its `breastclip` factory
     wrapped to prove that the loaded variables hold every tensor of the `.tar` before
-    the dissection runs."""
+    the dissection runs. With `spread`, every BatchNorm scale of the image tower is
+    then moved by one float32 ulp (up), the CSV goes under build/ and is compared with
+    the committed one: how far the JAX program moves under a float32-level change."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -392,7 +411,7 @@ def cmd_jax(ref: str, seed: int = SEED):
 
     probe, weights = REFERENCES[ref]
     path, sha, sd = cmd_weights(seed, weights)
-    out = WORK / "jax" / ref
+    out = WORK / ("jax_spread" if spread else "jax") / ref
     images_sha = write_mammo_probe(out / "probe", seed) if probe == "mammo_png" else None
     built = DISSECTORS.get("breastclip")
 
@@ -402,12 +421,23 @@ def cmd_jax(ref: str, seed: int = SEED):
         n = assert_same_tensors(got, sd, "JAX")
         print(f"[jax] every tensor of the .tar equal in the loaded JAX variables: "
               f"{len(weight_tensors(sd))} tensors, {n} values, no key missing on either side")
+        if spread:
+            d.variables = jax.tree_util.tree_map_with_path(
+                lambda path, a: np.nextafter(a, np.float32(np.inf)).astype(np.float32)
+                if path[-1].key == "scale" and "image_encoder" in str(path) else a,
+                jax.tree.map(np.asarray, d.variables))
+            d._jit_cache = {}
         return d
 
     DISSECTORS.register("breastclip", checked)
     t0 = time.perf_counter()
-    jax_cli.main(dissect_args(probe, str(path), str(out / "results"), str(out / "acts"),
-                              str(out / "probe")))
+    jax_cli.main([*dissect_args(probe, str(path), str(out / "results"), str(out / "acts"),
+                                str(out / "probe")), *REFERENCE_ARGS.get(ref, ())])
+    if spread:
+        print(f"[jax-spread] {ref}: {time.perf_counter() - t0:.1f} s (CPU)")
+        print(json.dumps(summary(compare_csvs(_newest_csv(out / "results"), jax_csv(ref))),
+                         indent=1))
+        return
     write_reference(ref, _newest_csv(out / "results"), seed, sha,
                     time.perf_counter() - t0, images_sha)
 
@@ -484,7 +514,7 @@ def cmd_port_cpu(ref: str, seed: int = SEED):
         if images_sha != manifest["images_sha256"][probe]:
             raise SystemExit(f"probe images sha256 {images_sha} != the manifest's")
     t0 = time.perf_counter()
-    csv = run_port(probe, "cpu", out, path, sd)
+    csv = run_port(probe, "cpu", out, path, sd, REFERENCE_ARGS.get(ref, ()))
     wall = time.perf_counter() - t0
     stats = compare_csvs(csv, jax_csv(ref))
     print(f"[port-cpu] {ref}: {wall:.1f} s (CPU)")
@@ -511,6 +541,8 @@ def main(argv=None):
         cmd_spread(opts["--weights"], seed)
     elif cmd == "jax":
         cmd_jax(ref, seed)
+    elif cmd == "jax-spread":
+        cmd_jax(ref, seed, spread=True)
     elif cmd == "compare":
         print(json.dumps(compare_csvs(rest[0], rest[1]), indent=1))
     elif cmd == "port-cpu":

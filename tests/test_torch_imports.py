@@ -49,6 +49,45 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert n_modules >= 80, proc.stdout  # every module of the package was imported
 
 
+_REEXPORTS = r"""
+import subprocess, sys
+import torch  # loads its own libraries first
+spawned = []
+subprocess.Popen = lambda *a, **k: spawned.append(a)  # an nvcc build would start one
+import ctypes
+loaded = []
+ctypes.CDLL = lambda *a, **k: loaded.append(a)  # a kernel library would load through it
+from mammodissect_torch.ops import soft_wpmi, get_similarity_fn, pool_activation
+from mammodissect_torch.models import SqueezeExcite, EfficientNetMammo
+from mammodissect_torch.train import linear_warmup_cosine_annealing
+from mammodissect_torch.data import get_probe, iter_batches
+from mammodissect_torch.dissect import run_dissection, write_results
+from mammodissect_torch.utils import seed_everything, Registry
+import importlib
+names = 0
+for pkg in ("ops", "train", "models", "data", "dissect", "utils"):
+    module = importlib.import_module("mammodissect_torch." + pkg)
+    for name in module.__all__:
+        getattr(module, name)
+        names += 1
+from mammodissect_torch.ops import kernels
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mammodissect"))
+print(names, "names;", "forbidden:", bad, "spawned:", spawned, "loaded:", loaded,
+      "libs:", kernels._libs)
+"""
+
+
+def test_reexported_names_import_without_jax_or_a_kernel_build():
+    """The six subpackages' `__all__` names (41) import in a fresh interpreter: no jax,
+    nothing of the JAX package, no nvcc started and no kernel library loaded (the
+    CUDA kernels build at their first launch)."""
+    proc = _run(["-c", _REEXPORTS])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == ("41 names; forbidden: [] spawned: [] loaded: [] libs: {}"), \
+        proc.stdout
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

@@ -1,8 +1,8 @@
 """Kernel 2 of the PyTorch port: the MBConv front half
 (`mammodissect_torch/ops/cuda_mbconv.py`) against the JAX package's XLA twin and
 Pallas kernel (interpret mode) in bf16, against the JAX MBConvBlock's front half
-for k3 and k5 in f32 (the kernel itself against its plain version runs in
-test_torch_gpu.py)."""
+for k3 and k5 in f32 and in bf16 (the kernel itself against its plain version runs
+in test_torch_gpu.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,6 +114,58 @@ def test_plain_f32_matches_jax_mbconv_front_half(k, h, w):
     got = expand_dw_plain(torch.from_numpy(x), torch.from_numpy(w_exp[0, 0]), s1, b1,
                           torch.from_numpy(w_dw[:, :, 0]), s2, b2).numpy()
     np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("k,h,w", [(3, 11, 7), (5, 9, 13)])
+def test_plain_bf16_matches_jax_mbconv_front_half(k, h, w):
+    """The bf16 plain version against the JAX MBConvBlock's front half at bf16 as XLA
+    compiles it (jitted): the convolutions' sums unrounded into the BatchNorms, each
+    BatchNorm's result and each op of the SiLU rounded. The folded BatchNorm
+    (`fold_bn`: x s + b where flax computes (x - mean) (scale rsqrt(var + eps)) +
+    bias) rounds the other way where the float32 results straddle a bf16 rounding
+    boundary; measured 100% (k3) and 99.991% (k5) bit-identical."""
+    from flax import linen as nn
+
+    cin, cexp = 8, 48
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.normal(size=(2, h, w, cin)).astype(np.float32)).to(torch.bfloat16)
+    w_exp = rng.normal(size=(1, 1, cin, cexp)).astype(np.float32) * 0.3
+    w_dw = rng.normal(size=(k, k, 1, cexp)).astype(np.float32) * 0.3
+    bns = [{key: v.astype(np.float32) for key, v in dict(
+        scale=rng.uniform(0.5, 1.5, cexp), bias=rng.normal(size=cexp) * 0.1,
+        mean=rng.normal(size=cexp) * 0.1, var=rng.uniform(0.5, 1.5, cexp)).items()}
+        for _ in range(2)]
+
+    class Front(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            def bn(name):
+                return nn.BatchNorm(use_running_average=True, epsilon=1e-3,
+                                    dtype=jnp.bfloat16, name=name)
+
+            x = nn.Conv(cexp, (1, 1), use_bias=False, dtype=jnp.bfloat16, name="expand_conv")(x)
+            x = jax.nn.silu(bn("bn0")(x))
+            x = nn.Conv(cexp, (k, k), padding="SAME", feature_group_count=cexp, use_bias=False,
+                        dtype=jnp.bfloat16, name="depthwise_conv")(x)
+            return jax.nn.silu(bn("bn1")(x))
+
+    variables = {
+        "params": {"expand_conv": {"kernel": w_exp}, "depthwise_conv": {"kernel": w_dw},
+                   "bn0": {"scale": bns[0]["scale"], "bias": bns[0]["bias"]},
+                   "bn1": {"scale": bns[1]["scale"], "bias": bns[1]["bias"]}},
+        "batch_stats": {"bn0": {"mean": bns[0]["mean"], "var": bns[0]["var"]},
+                        "bn1": {"mean": bns[1]["mean"], "var": bns[1]["var"]}},
+    }
+    x_jax = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    want = np.asarray(jax.jit(Front().apply)(variables, x_jax).astype(jnp.float32))
+    folded = [fold_bn(*(torch.from_numpy(bn[key]) for key in ("scale", "bias", "mean", "var")))
+              for bn in bns]
+    got = expand_dw_plain(x, torch.from_numpy(w_exp[0, 0]).to(torch.bfloat16), *folded[0],
+                          torch.from_numpy(w_dw[:, :, 0]).to(torch.bfloat16), *folded[1])
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert (got == want).mean() >= 0.999
+    np.testing.assert_allclose(got, want, **BF16_TOL)
 
 
 def test_fold_bn_matches_jax():
