@@ -18,7 +18,11 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      timed, and its launch alone), its plain version and its bound (the least time
      an H100 SXM could take for the same work: 3.35 TB/s, 989 TFLOP/s bf16 tensor,
      495 TFLOP/s tf32 tensor (kernel 2's fp32 expand: three tf32 products), 67
-     TFLOP/s fp32);
+     TFLOP/s fp32); kernel 2's squeeze (the SE's sum over H x W) against its plain
+     version's at every shape and input set, within 1e-5 of the sum of |values| over
+     H x W in bf16 (the values agree bit for bit, the sums' order differs) and within
+     the elementwise tolerance summed over H x W in fp32; its bf16 output bit for bit
+     the plain version's; two launches give the same output and squeeze;
   6. the main path: `run_dissection` resident at full width (B5 at 1520x912, all 39
      blocks, 12-layer BERT, the 762 concepts, soft-WPMI, bf16 tower) on random
      weights from a seed and mammogram-shaped synthetic images; the kernels' launch
@@ -140,6 +144,7 @@ from __future__ import annotations
 import ast
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -289,6 +294,7 @@ def ptxas_summary(log):
 
 # label -> a fragment of the mangled name, for every kernel the sources compile
 KERNEL_LABELS = {"mbconv bf16 k3": "expand_dw_bf16_kernelILi3",
+                 "mbconv squeeze tiles": "squeeze_tiles_kernel",
                  "mbconv bf16 k5": "expand_dw_bf16_kernelILi5",
                  "mbconv fp32 k3": "expand_dw_f32_kernelILi3",
                  "mbconv fp32 k5": "expand_dw_f32_kernelILi5",
@@ -312,7 +318,7 @@ def phase_build():
     report = kernels.build(ptxas_verbose=True)
     seconds = time.perf_counter() - t0
     say(f"[build] {sorted(report)} in {seconds:.2f} s (nvcc, sm_90a, in parallel)")
-    seen = set()
+    seen, spills = set(), []
     for name in sorted(report):
         for row in ptxas_summary(report[name]["log"]):
             row["kernel"] = kernel_label(row.pop("function"))
@@ -321,8 +327,9 @@ def phase_build():
                 f"{row.get('static_smem')} bytes static smem, {row.get('stack_frame')} bytes "
                 f"stack frame, {row.get('spill_stores')} bytes spill stores, "
                 f"{row.get('spill_loads')} bytes spill loads")
-            check(row.get("spill_stores") == 0 and row.get("spill_loads") == 0,
-                  f"{row['kernel']} spills registers: {row}")
+            if row.get("spill_stores") != 0 or row.get("spill_loads") != 0:
+                spills.append(row)
+    check(not spills, f"kernels spill registers: {spills}")
     missing = set(KERNEL_LABELS) - seen
     check(not missing, f"no ptxas figures for {sorted(missing)}")
     return seconds
@@ -398,7 +405,8 @@ def phase_wpmi(n_images, device):
 
 def mbconv_bound(b, h, w, cin, cexp, k, dtype):
     """Kernel 2's bound (phases 5, 8 and 13): each input read once and the
-    output written once at 3.35 TB/s, or the operations, whichever is longer. The
+    outputs written once (out and the squeeze, and the squeeze's tile partials
+    written and read once) at 3.35 TB/s, or the operations, whichever is longer. The
     operations: bf16, the expand at 989 TFLOP/s on the tensor cores beside the
     depthwise at 67 TFLOP/s fp32; fp32, the expand as 3xTF32 (three tf32 products)
     at 495/3 TFLOP/s on the tensor cores beside the depthwise at 67 TFLOP/s. fp32
@@ -410,8 +418,10 @@ def mbconv_bound(b, h, w, cin, cexp, k, dtype):
     bf16 = dtype == torch.bfloat16
     size = 2 if bf16 else 4
     pix = b * h * w
+    tiles = -(-h // 16) * -(-w // (12 if bf16 else 15))  # the kernel's output tiles
+    partials = b * tiles * -(-cexp // 48) * 48  # a squeeze partial a tile and channel
     t_bytes = (pix * (cin + cexp) * size + (cin * cexp + k * k * cexp) * size
-               + 4 * cexp * 4) / HBM_BYTES_PER_S * 1e3
+               + 6 * cexp * 4 + b * cexp * 4 + 2 * partials * 4) / HBM_BYTES_PER_S * 1e3
     expand, dw = 2 * pix * cin * cexp, 2 * k * k * pix * cexp
     t_ops = (max(expand / BF16_TENSOR_FLOPS, dw / FP32_FLOPS) if bf16
              else max(3 * expand / TF32_TENSOR_FLOPS, dw / FP32_FLOPS)) * 1e3
@@ -430,7 +440,7 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=Fal
     expand_dominant (bf16): x and the expand at unit scale, depthwise weights ~1/K^2
     and no BN2 bias, so each output is about the mean of its window's expanded values
     and any fault of the expand (a dropped channel chunk, a wrong tail tile) moves it
-    far past EXPAND_DOMINANT_TOL."""
+    far: the kernel's bf16 output must equal the plain version's bit for bit."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -442,20 +452,33 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=Fal
     def pos(n):
         return (torch.rand((n,), generator=g) + 0.5).to(device)
 
+    # (x, w_exp, BN1 mean, mul, bias, w_dw, BN2 mean, mul, bias); the means are drawn
+    # last, so the other draws are those of the folded interface's inputs
     if expand_dominant:
-        w_dw = (1.0 + rnd(k, k, cexp, scale=0.1)) / (k * k)
-        return (rnd(b, h, w, cin).to(dtype), rnd(cin, cexp, scale=cin ** -0.5).to(dtype),
-                pos(cexp), rnd(cexp, scale=0.1), w_dw.to(dtype), pos(cexp),
-                torch.zeros(cexp, device=device))
-    return (rnd(b, h, w, cin, scale=0.1 if bf16 else 1.0).to(dtype),
-            rnd(cin, cexp, scale=0.05 if bf16 else cin ** -0.5).to(dtype),
-            pos(cexp), rnd(cexp, scale=0.1), rnd(k, k, cexp, scale=0.05 if bf16 else 0.2).to(dtype),
-            pos(cexp), rnd(cexp, scale=0.1))
+        x, w_exp = rnd(b, h, w, cin).to(dtype), rnd(cin, cexp, scale=cin ** -0.5).to(dtype)
+        mul1, bias1 = pos(cexp), rnd(cexp, scale=0.1)
+        w_dw = ((1.0 + rnd(k, k, cexp, scale=0.1)) / (k * k)).to(dtype)
+        mul2, zeros = pos(cexp), torch.zeros(cexp, device=device)
+        return x, w_exp, rnd(cexp, scale=0.1), mul1, bias1, w_dw, zeros, mul2, zeros
+    x = rnd(b, h, w, cin, scale=0.1 if bf16 else 1.0).to(dtype)
+    w_exp = rnd(cin, cexp, scale=0.05 if bf16 else cin ** -0.5).to(dtype)
+    mul1, bias1 = pos(cexp), rnd(cexp, scale=0.1)
+    w_dw = rnd(k, k, cexp, scale=0.05 if bf16 else 0.2).to(dtype)
+    mul2, bias2 = pos(cexp), rnd(cexp, scale=0.1)
+    return x, w_exp, rnd(cexp, scale=0.1), mul1, bias1, w_dw, rnd(cexp, scale=0.1), mul2, bias2
 
 
-# bf16 at unit scale: rtol 2^-7 is one to two bf16 ulps of the output; atol covers two
-# one-ulp flips of the bf16 expanded tensor (weighted ~1/K^2) at outputs near 0
-EXPAND_DOMINANT_TOL = (4e-3, 2.0 ** -7)
+# kernel 2's squeeze against its plain version's: the bf16 values agree bit for bit,
+# so only the float32 sums' order differs (a fraction of the sum of |values|); in fp32
+# the elementwise tolerance (atol, rtol) summed over H x W
+SQUEEZE_BF16_RTOL = 1e-5
+
+
+def squeeze_err(got, want, out, atol, rtol):
+    """The largest |squeeze - plain squeeze| over its bound atol H W + rtol sum |out|
+    (out: the plain version's [B, H, W, Cexp]): at most 1 to pass."""
+    bound = atol * out.shape[1] * out.shape[2] + rtol * out.float().abs().sum(dim=(1, 2))
+    return float(((got - want).abs() / bound).max())
 
 
 def phase_mbconv(device):
@@ -467,32 +490,46 @@ def phase_mbconv(device):
     for i, (k, h, w, cin, cexp, n_blocks, first_ms, _) in enumerate(B5_SHAPES):
         row = {"k": k, "H": h, "W": w, "Cin": cin, "Cexp": cexp, "blocks": n_blocks}
         for name, dtype, b, (atol, rtol) in (
-                ("bf16", torch.bfloat16, MAIN_BATCH, (2e-3, 2e-2)),
-                ("bf16_unit", torch.bfloat16, 2, EXPAND_DOMINANT_TOL),
+                ("bf16", torch.bfloat16, MAIN_BATCH, (0.0, 0.0)),
+                ("bf16_unit", torch.bfloat16, 2, (0.0, 0.0)),
                 ("fp32", torch.float32, 2, (1e-4, 1e-4))):
             args = _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=10 + i,
                                 expand_dominant=name == "bf16_unit")
-            got = fused_expand_dw(*args).float()
-            want = expand_dw_plain(*args).float()
+            got, squeeze = fused_expand_dw(*args)
+            want, want_squeeze = expand_dw_plain(*args)
+            again, squeeze_again = fused_expand_dw(*args)
             torch.cuda.synchronize()
-            err = (got - want).abs()
-            check(bool((err <= atol + rtol * want.abs()).all()),
+            check(torch.equal(got, again) and torch.equal(squeeze, squeeze_again),
+                  f"kernel 2 ({name}, {row}): two launches differ")
+            del again, squeeze_again
+            err = (got.float() - want.float()).abs()
+            check(bool((err <= atol + rtol * want.float().abs()).all()),
                   f"kernel 2 disagrees ({name}, {row}): max abs err {float(err.max())}")
+            sq_tol = (0.0, SQUEEZE_BF16_RTOL) if dtype == torch.bfloat16 else (atol, rtol)
+            sq = squeeze_err(squeeze, want_squeeze, want, *sq_tol)
+            check(sq <= 1.0, f"kernel 2's squeeze disagrees ({name}, {row}): {sq:.3g} of "
+                  f"its bound (atol, rtol) {sq_tol}")
             edge = torch.cat([err[:, :2].flatten(), err[:, -2:].flatten(),
                               err[:, :, :2].flatten(), err[:, :, -2:].flatten()])
             row[f"max_abs_err_{name}"] = float(err.max())
             row[f"border_max_abs_err_{name}"] = float(edge.max())
+            row[f"squeeze_err_{name}"] = sq
+            row[f"squeeze_max_abs_err_{name}"] = float((squeeze - want_squeeze).abs().max())
             if name == "bf16":
                 row["ms"] = cuda_ms(lambda: fused_expand_dw(*args), reps=5)
                 row["plain_ms"] = cuda_ms(lambda: expand_dw_plain(*args), reps=2)
                 row.update(mbconv_bound(b, h, w, cin, cexp, k, dtype))
-            del args, got, want, err
+            del args, got, want, err, squeeze, want_squeeze
         rows.append(row)
         say(f"[kernel 2] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH} bf16: "
             f"max abs err {row['max_abs_err_bf16']:.3g} (border {row['border_max_abs_err_bf16']:.3g}); "
             f"bf16 unit scale B=2: {row['max_abs_err_bf16_unit']:.3g} "
             f"(border {row['border_max_abs_err_bf16_unit']:.3g}); "
-            f"fp32 B=2: {row['max_abs_err_fp32']:.3g}; {row['ms']:.4f} ms (first version "
+            f"fp32 B=2: {row['max_abs_err_fp32']:.3g}; squeeze (share of its bound, max abs "
+            f"err) bf16 {row['squeeze_err_bf16']:.3g}, {row['squeeze_max_abs_err_bf16']:.3g}, "
+            f"unit {row['squeeze_err_bf16_unit']:.3g}, {row['squeeze_max_abs_err_bf16_unit']:.3g}, "
+            f"fp32 {row['squeeze_err_fp32']:.3g}, {row['squeeze_max_abs_err_fp32']:.3g}; two "
+            f"launches identical; {row['ms']:.4f} ms (first version "
             f"{first_ms:.3f} ms), plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
     torch.cuda.empty_cache()
@@ -538,13 +575,15 @@ def phase_main_path(device, pool, dissector):
     cfg = resident_cfg(tempfile.mkdtemp(prefix="chip_smoke_"), device)
     torch.cuda.reset_peak_memory_stats()
     fused_expand_dw.launches = 0
+    fused_expand_dw.reduce_launches = 0
     soft_wpmi_gather_logsum.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     df, csv_path = run_dissection(cfg, probe=probe, dissector=dissector, log=lambda *_: None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches}
+    launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches,
+                "mbconv_squeeze_reduce": fused_expand_dw.reduce_launches}
     n_batches = -(-MAIN_N // MAIN_BATCH)
     sims = np.array([json.loads(s) if isinstance(s, str) else s for s in df["similarity"]])
     check(len(df) == 6992, f"CSV has {len(df)} rows, expected 6992")
@@ -552,6 +591,9 @@ def phase_main_path(device, pool, dissector):
     check(launches["mbconv"] == 32 * n_batches,
           f"MBConv kernel launched {launches['mbconv']} times, expected {32 * n_batches}")
     check(launches["wpmi"] >= 1, "soft-WPMI kernel never launched on the main path")
+    check(launches["mbconv_squeeze_reduce"] == launches["mbconv"],
+          f"kernel 2's squeeze reduction launched {launches['mbconv_squeeze_reduce']} times, "
+          f"its kernel {launches['mbconv']}")
     row = {"images": MAIN_N, "batch": MAIN_BATCH, "batches": n_batches, "wall_s": wall,
            "img_per_s": MAIN_N / wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "rows": len(df)}
@@ -587,8 +629,8 @@ def fp32_mbconv_rows(device):
     rows = []
     for i, (k, h, w, cin, cexp, n_blocks, _, before_ms) in enumerate(B5_SHAPES):
         args = _mbconv_args(MAIN_BATCH, h, w, cin, cexp, k, torch.float32, device, seed=30 + i)
-        got = fused_expand_dw(*args)
-        want = expand_dw_plain(*args)
+        got, _ = fused_expand_dw(*args)
+        want, _ = expand_dw_plain(*args)
         torch.cuda.synchronize()
         err = (got - want).abs()
         check(bool((err <= 1e-4 + 1e-4 * want.abs()).all()),
@@ -1548,8 +1590,8 @@ def v2_mbconv_rows(device):
         for name, dtype, (atol, rtol) in (("fp32", torch.float32, (1e-4, 1e-4)),
                                           ("bf16", torch.bfloat16, (2e-3, 2e-2))):
             args = _mbconv_args(MAIN_BATCH, h, w, cin, cexp, k, dtype, device, seed=50 + i)
-            got = fused_expand_dw(*args).float()
-            want = expand_dw_plain(*args).float()
+            got = fused_expand_dw(*args)[0].float()
+            want = expand_dw_plain(*args)[0].float()
             torch.cuda.synchronize()
             err = (got - want).abs()
             check(bool((err <= atol + rtol * want.abs()).all()),
@@ -2513,10 +2555,12 @@ def phase_fullwidth(device):
                   f"full-width {name}: launches {launches}, expected kernel 2 32 x "
                   f"{n_batches} and kernel 1 once")
             stats = fw.compare_csvs(str(csvs[name]), jax_df)
+            with open(csvs[name], "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
             runs[name] = {"wall_s": wall, "launches": launches, **fw.summary(stats),
-                          "disagreements": stats["disagreements"]}
+                          "disagreements": stats["disagreements"], "csv_sha256": digest}
             say(f"[fullwidth] {name}: CLI {wall:.2f} s with the model build, launches "
-                f"{launches}; vs JAX fp32: {json.dumps(fw.summary(stats))}")
+                f"{launches}; CSV sha256 {digest}; vs JAX fp32: {json.dumps(fw.summary(stats))}")
             if ref == FW_GATED and precision == "bf16":
                 stats = fw.compare_csvs(str(csvs[name]), fw.read_csv(fw.jax_csv(FW_BF16_REF)))
                 vs_bf16 = {**fw.summary(stats), "disagreements": stats["disagreements"]}
@@ -2649,6 +2693,8 @@ def main():
          "source": "mammodissect_torch/csrc/mbconv_expand_dw.cu",
          "replaces": "mammodissect/ops/pallas_mbconv.py:118",
          "launches": main_path["launches"]["mbconv"],
+         # its second kernel, which adds the squeeze's tile partials: one a launch
+         "reduce_launches": main_path["launches"]["mbconv_squeeze_reduce"],
          "launches_c_dissect": c_dissect["launches"]["mbconv"],
          # the end-to-end fine-tune: 32 an eval batch (validation, train-eval), 0 in train steps
          "launches_finetune": finetune["end_to_end"]["launches"]["mbconv"],
@@ -2658,6 +2704,10 @@ def main():
          # the zoo dissections read phase 8's and 11's dissector caches: no B5 forward
          "launches_zoo": {n: r["launches"]["mbconv"] for n, r in zoo["runs"].items()},
          "max_abs_err": max(r["max_abs_err_bf16"] for r in mbconv),
+         # the squeeze: the largest share of its bound, and |error|, over the shapes
+         "squeeze_err": max(r[f"squeeze_err_{n}"] for r in mbconv
+                            for n in ("bf16", "bf16_unit", "fp32")),
+         "squeeze_max_abs_err_bf16": max(r["squeeze_max_abs_err_bf16"] for r in mbconv),
          # one forward's 32 launches at the main path's batch
          "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
          "bound_ms": per_forward("bound_ms"),

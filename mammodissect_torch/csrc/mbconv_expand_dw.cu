@@ -1,8 +1,11 @@
-// MBConv front half for Hopper (sm_90a): 1x1 expand -> folded BN + SiLU ->
-// k x k stride-1 depthwise (SAME zeros) -> folded BN + SiLU, in one kernel.
+// MBConv front half for Hopper (sm_90a): 1x1 expand -> BN + SiLU -> k x k
+// stride-1 depthwise (SAME zeros) -> BN + SiLU, in one kernel, and the SE's squeeze.
 //
 //   x [B, H, W, Cin] (NHWC), w_exp [Cin, Cexp], w_dw [K, K, Cexp], all in T;
-//   bn1/bn2 scale and bias [Cexp] f32  ->  out [B, H, W, Cexp] in T.
+//   each BatchNorm as three f32 vectors [Cexp]: mean, mul = scale * (1 / sqrt(var +
+//   eps)) and bias (flax's inference BatchNorm, (v - mean) * mul + bias)
+//   ->  out [B, H, W, Cexp] in T, and squeeze [B, Cexp] f32: the sum over H x W of
+//   the last SiLU's values before they are rounded to T (the SE's mean times H W).
 //   T is __nv_bfloat16 (the tower's main path) or float; every sum is fp32.
 //
 // Replaces the TPU kernel mammodissect/ops/pallas_mbconv.py::fused_expand_dw
@@ -18,7 +21,24 @@
 // the FLOPs, so it runs on the tensor cores; the depthwise's fp32 FMAs are the rest.
 // In fp32 the expand takes three tf32 products (3xTF32, below), so its bound is the
 // expand at 495/3 TFLOP/s beside the depthwise at 67 TFLOP/s: 6.69 ms a B5 forward
-// at batch 16 (14.29 ms were both on the fp32 FMAs).
+// at batch 16 (14.29 ms were both on the fp32 FMAs). The squeeze adds its tile
+// partials, B*tiles*Cexp*4 bytes written and read once (below), and B*Cexp*4 bytes.
+//
+// The squeeze. The SE block after this kernel averages the last SiLU over H x W; the
+// kernel sums it from the values in registers, so no pass reads the expanded tensor
+// back. In bf16 the summed value is the SiLU's last product a * r in fp32, before the
+// store rounds it (XLA's program of the JAX block averages that product unrounded:
+// its mean promotes to fp32); in fp32 it is the value written. The order is fixed,
+// with no float atomics, so two launches give the same bits: each depthwise item
+// (a row segment of one or two channels) sums its outputs inside the image in column
+// order in registers and leaves the sum in shared memory; after the block's barrier
+// one thread a channel adds the items in row-then-segment order and writes the
+// tile's partial to partials [B, tiles, Cexp rounded up to 48] (f32 scratch from the
+// caller; every B5 and V2-S width is a multiple of 48); a second
+// kernel (`squeeze_tiles_kernel`) then adds each (image, channel)'s partials in tile
+// order. At block 4's 380 x 228 x 240, batch 16, the scratch is 16 x 456 x 240 x 4 =
+// 7 MB (bf16 tiles), where a separate mean moves 10 bytes a value (the bf16 output
+// read, an f32 copy written and read back): 3.3 GB there.
 //
 // bf16 design. The TPU kernel keeps a (t+4) x (W+4) x Cin input slab in VMEM, ~1.4
 // MB at block 4 and far over the 227 KB of shared memory a block may use. A block
@@ -33,14 +53,17 @@
 //     products; out-of-image positions and channel tails are zero-filled (src-size
 //     0), and a chunk runs only the k16 steps it has (Cin = 40 costs 48, not 64).
 //     Rows are padded by 16 bytes, so ldmatrix is free of bank conflicts.
-//   epilogue: BN1 on the fp32 sums (`bn_bf16`), rounded to bf16, then the SiLU as the JAX
+//   epilogue: BN1 on the fp32 sums (`bn_bf16`, as flax's BatchNorm: (v - mean) * mul +
+//     bias, the subtraction rounded, the product and the sum one FMA, as XLA's CPU
+//     program computes it), rounded to bf16, then the SiLU as the JAX
 //     package's bf16 program computes it (`silu_bf16`), zeros at out-of-image halo
 //     positions (the depthwise must see SAME zeros, not silu(bn1 bias) of a zero
 //     input), into shared memory as bf16 (over the stages, which are done).
 //   depthwise: two channels a thread (bf16x2), a register window sliding along 6
 //     output columns (each input read once per output row), K*K weights in
 //     registers, fp32 sums, BN2 (`bn_bf16`) rounded to bf16, `silu_bf16`; the output tile is
-//     staged in shared memory and stored as 16-byte vectors.
+//     staged in shared memory and stored as 16-byte vectors. Each item's two squeeze
+//     sums stay in registers, then go to a static 32 x 48 f32 array (6 KB).
 //   The roundings are the ones XLA's CPU program of the JAX MBConv block makes at
 //   bf16: the convolutions' fp32 sums enter the BatchNorms unrounded (the
 //   BatchNorm promotes them to fp32, which absorbs their rounding), each
@@ -85,7 +108,11 @@
 //     sums' registers are free (16-byte vectors; fast exponential and division).
 //   depthwise: one channel a thread, a register window sliding along 5 output
 //     columns, K*K fp32 weights in registers, BN2 + SiLU, stored from registers (a
-//     warp writes 32 neighbouring channels: whole 32-byte sectors).
+//     warp writes 32 neighbouring channels: whole 32-byte sectors). Each item's
+//     squeeze sum goes to 48 x 48 floats past the expanded tile, in the stages'
+//     space (9 KB; a static array would cost the second block an SM).
+//   Both BatchNorms are folded as the block loads them: scale mul, shift bias - mean
+//   * mul (fp32 keeps the fold: no rounding to match, and fewer live values).
 // 16 x 15 rather than the bf16 16 x 12: 29 columns (the 48 x 29 deep blocks) split
 // into 2 tiles of 15 instead of 3 of 12, whose last is 5 wide; the halo recompute is
 // 20*16/240 = 1.33 (K = 3) and 24*16/240 = 1.6 (K = 5) with the m16 padding. The
@@ -115,22 +142,56 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The bf16 path's folded BatchNorm: the product and the sum each rounded (not one
-// fma), as the plain version's two torch ops round them
-__device__ __forceinline__ float bn_bf16(float v, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(v, scale), bias);
+// The bf16 path's BatchNorm, as XLA's CPU program of flax's BatchNorm computes it:
+// v - mean rounded, then (v - mean) * mul + bias as one FMA (LLVM contracts the
+// product and the sum); `ops.cuda_mbconv.batch_norm_fma` is the plain version
+__device__ __forceinline__ float bn_bf16(float v, float mean, float mul, float bias) {
+  return __fmaf_rn(__fsub_rn(v, mean), mul, bias);
 }
 
 // The bf16 path's SiLU of a bf16 value a, as XLA computes the JAX package's
 // jax.nn.silu at bf16: exp(-a), 1 + it and its reciprocal each rounded to bf16
 // (the accurate expf and the IEEE reciprocal, so that the float32 results round as
 // XLA's do), a subnormal reciprocal flushed to zero as XLA's CPU backend flushes it;
-// returns the product a * r, which the caller's bf16 store rounds.
+// returns the product a * r rounded to fp32 (an explicit multiply: contracted into
+// the squeeze's sum, it would sum exact products), which the caller's bf16 store rounds.
 __device__ __forceinline__ float silu_bf16(float a) {
   const float d = bf16_round(1.0f + bf16_round(expf(-a)));
   const float r = bf16_round(__frcp_rn(d));
-  return a * (r < 1.17549435e-38f ? 0.0f : r);
+  return __fmul_rn(a, r < 1.17549435e-38f ? 0.0f : r);
 }
+
+// The two BatchNorms' vectors [Cexp] f32, passed by value: mean, mul, bias of BN1,
+// then of BN2. `at` selects without indexing the parameter array by a runtime value
+// (which would copy it to local memory).
+struct Bn {
+  const float* mean1;
+  const float* mul1;
+  const float* bias1;
+  const float* mean2;
+  const float* mul2;
+  const float* bias2;
+  __device__ __forceinline__ const float* at(int r) const {
+    return r == 0 ? mean1 : r == 1 ? mul1 : r == 2 ? bias1 : r == 3 ? mean2 : r == 4 ? mul2 : bias2;
+  }
+};
+
+// Adds each (image, channel)'s tile partials [B, tiles, cpad] (cpad: Cexp rounded up
+// to the 48-channel tile) in tile order: the squeeze [B, Cexp]. One thread an (image,
+// channel); neighbouring threads read neighbouring channels.
+__global__ void squeeze_tiles_kernel(const float* __restrict__ partials,
+                                     float* __restrict__ squeeze, int tiles, int cexp,
+                                     int cpad, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* p = partials + (i / cexp) * tiles * cpad + i % cexp;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int t = 0; t < tiles; ++t) s += p[static_cast<int64_t>(t) * cpad];
+  squeeze[i] = s;
+}
+
+constexpr int CHANNEL_TILE = 48;  // expanded channels a block, both paths
 
 // ---------------------------------------------------------------- bf16, tensor cores
 namespace tc {
@@ -138,7 +199,7 @@ namespace tc {
 constexpr int TH = 16;            // output rows per block
 constexpr int TW = 12;            // output columns per block
 constexpr int SEG = TW / 2;       // output columns of one depthwise window
-constexpr int CT = 48;            // expanded channels per block
+constexpr int CT = CHANNEL_TILE;  // expanded channels per block
 constexpr int NT = CT / 8;        // n8 tiles of the expand
 constexpr int KC = 32;            // input channels per stage (two k16 steps)
 constexpr int STAGES = 2;
@@ -164,15 +225,16 @@ struct Geometry {
 template <int K>
 __global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: one's copies, another's math
 expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp,
-                      const float* __restrict__ s1, const float* __restrict__ b1,
-                      const bf16* __restrict__ w_dw, const float* __restrict__ s2,
-                      const float* __restrict__ b2, bf16* __restrict__ out, int H, int W,
-                      int cin, int cexp, int tiles_w, int vec) {
+                      Bn bn, const bf16* __restrict__ w_dw, bf16* __restrict__ out,
+                      float* __restrict__ partials, int H, int W, int cin, int cexp, int tiles_w,
+                      int vec) {
   using G = Geometry<K>;
   constexpr int PAD = (K - 1) / 2;
+  constexpr int SEGS_W = TW / SEG;                   // depthwise items along a row
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_bn[4][CT];                      // s1, b1, s2, b2 of the tile
+  __shared__ float s_bn[6][CT];                      // mean, mul, bias of BN1, then BN2
   __shared__ __align__(8) float s_wdw[K * K][CT];
+  __shared__ __align__(8) float s_sq[TH * SEGS_W][CT];  // the depthwise items' squeeze sums
   bf16* const sm = reinterpret_cast<bf16*>(smem);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -182,10 +244,9 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
   const int64_t img = blockIdx.z;
   const bf16* const ximg = x + img * H * W * cin;
 
-  for (int i = tid; i < 4 * CT; i += THREADS) {
+  for (int i = tid; i < 6 * CT; i += THREADS) {
     const int r = i / CT, c = c0 + i % CT;
-    const float* v = r == 0 ? s1 : r == 1 ? b1 : r == 2 ? s2 : b2;
-    s_bn[r][i % CT] = c < cexp ? v[c] : 0.0f;
+    s_bn[r][i % CT] = c < cexp ? bn.at(r)[c] : 0.0f;
   }
   for (int i = tid; i < K * K * CT; i += THREADS) {
     const int t = i / CT, c = c0 + i % CT;
@@ -308,9 +369,10 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int c = nt * 8 + q2;
-        const float v0 = silu_bf16(bf16_round(bn_bf16(acc[mi][nt][2 * h], s_bn[0][c], s_bn[1][c])));
-        const float v1 =
-            silu_bf16(bf16_round(bn_bf16(acc[mi][nt][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1])));
+        const float v0 = silu_bf16(
+            bf16_round(bn_bf16(acc[mi][nt][2 * h], s_bn[0][c], s_bn[1][c], s_bn[2][c])));
+        const float v1 = silu_bf16(bf16_round(
+            bn_bf16(acc[mi][nt][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1], s_bn[2][c + 1])));
         *reinterpret_cast<__nv_bfloat162*>(es + p * ES + c) =
             inside ? __floats2bfloat162_rn(v0, v1) : __float2bfloat162_rn(0.0f);
       }
@@ -318,17 +380,23 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
   }
   __syncthreads();
 
-  // ---- depthwise K x K, two channels a thread, a window sliding along SEG columns
+  // ---- depthwise K x K, two channels a thread, a window sliding along SEG columns;
+  // each item sums its outputs inside the image (the squeeze) in column order
   constexpr int PAIRS = CT / 2;
-  constexpr int ITEMS = PAIRS * TH * (TW / SEG);
+  constexpr int ITEMS = PAIRS * TH * SEGS_W;
   for (int it = tid; it < ITEMS; it += THREADS) {
     const int c = (it % PAIRS) * 2, rest = it / PAIRS;
-    const int r = rest / (TW / SEG), col0 = (rest % (TW / SEG)) * SEG;
-    if (y0 + r >= H) continue;
+    const int r = rest / SEGS_W, col0 = (rest % SEGS_W) * SEG;
+    if (y0 + r >= H) {
+      *reinterpret_cast<float2*>(&s_sq[rest][c]) = make_float2(0.0f, 0.0f);
+      continue;
+    }
     float2 wk[K * K];
 #pragma unroll
     for (int t = 0; t < K * K; ++t) wk[t] = *reinterpret_cast<const float2*>(&s_wdw[t][c]);
-    const float sc0 = s_bn[2][c], sc1 = s_bn[2][c + 1], bi0 = s_bn[3][c], bi1 = s_bn[3][c + 1];
+    const float m0 = s_bn[3][c], m1 = s_bn[3][c + 1], mu0 = s_bn[4][c], mu1 = s_bn[4][c + 1];
+    const float bi0 = s_bn[5][c], bi1 = s_bn[5][c + 1];
+    float sq0 = 0.0f, sq1 = 0.0f;
     float2 win[K][K];
 #pragma unroll
     for (int dy = 0; dy < K; ++dy)
@@ -352,13 +420,28 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
             a0 = fmaf(win[dy][dx].x, wk[dy * K + dx].x, a0);
             a1 = fmaf(win[dy][dx].y, wk[dy * K + dx].y, a1);
           }
-        *reinterpret_cast<__nv_bfloat162*>(os + (r * TW + col0 + j - (K - 1)) * ES + c) =
-            __floats2bfloat162_rn(silu_bf16(bf16_round(bn_bf16(a0, sc0, bi0))),
-                                  silu_bf16(bf16_round(bn_bf16(a1, sc1, bi1))));
+        const float v0 = silu_bf16(bf16_round(bn_bf16(a0, m0, mu0, bi0)));
+        const float v1 = silu_bf16(bf16_round(bn_bf16(a1, m1, mu1, bi1)));
+        const int col = col0 + j - (K - 1);
+        *reinterpret_cast<__nv_bfloat162*>(os + (r * TW + col) * ES + c) =
+            __floats2bfloat162_rn(v0, v1);
+        if (x0 + col < W) {
+          sq0 += v0;
+          sq1 += v1;
+        }
       }
     }
+    *reinterpret_cast<float2*>(&s_sq[rest][c]) = make_float2(sq0, sq1);
   }
   __syncthreads();
+
+  // ---- the tile's squeeze partial: one thread a channel adds the items in order
+  if (tid < CT) {
+    float s = 0.0f;
+#pragma unroll 8
+    for (int i = 0; i < TH * SEGS_W; ++i) s += s_sq[i][tid];
+    partials[((img * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * CT + tid] = s;
+  }
 
   // ---- store: 16 bytes a thread, masked at the image and channel edges
   constexpr int SEGS = CT / 8;
@@ -377,9 +460,8 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
 }
 
 template <int K>
-int launch_bf16(const void* x, const void* w_exp, const void* s1, const void* b1,
-                const void* w_dw, const void* s2, const void* b2, void* out, int batch, int H,
-                int W, int cin, int cexp, cudaStream_t stream) {
+int launch_bf16(const void* x, const void* w_exp, const Bn& bn, const void* w_dw, void* out,
+                void* partials, int batch, int H, int W, int cin, int cexp, cudaStream_t stream) {
   using G = Geometry<K>;
   auto kernel = expand_dw_bf16_kernel<K>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -393,9 +475,8 @@ int launch_bf16(const void* x, const void* w_exp, const void* s1, const void* b1
   // channel tiles run fastest, so the blocks that share a halo tile share it in L2
   const dim3 grid((cexp + CT - 1) / CT, static_cast<unsigned>(tiles), batch);
   kernel<<<grid, THREADS, G::SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w_exp), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w_dw),
-      static_cast<const float*>(s2), static_cast<const float*>(b2), static_cast<bf16*>(out), H,
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w_exp), bn,
+      static_cast<const bf16*>(w_dw), static_cast<bf16*>(out), static_cast<float*>(partials), H,
       W, cin, cexp, tiles_w, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -408,7 +489,7 @@ namespace f32 {
 constexpr int TH = 16;            // output rows per block
 constexpr int TW = 15;            // output columns per block
 constexpr int SEG = 5;            // output columns of one depthwise window
-constexpr int CT = 48;            // expanded channels per block
+constexpr int CT = CHANNEL_TILE;  // expanded channels per block
 constexpr int NT = CT / 8;        // n8 tiles of the expand
 constexpr int WARPS_M = 4;        // warps along the halo positions
 constexpr int WARPS_N = 2;        // warps along the channels
@@ -428,22 +509,23 @@ struct Geometry {
   static constexpr int MPW = (MT + WARPS_M - 1) / WARPS_M;
   static constexpr int ROWS = MT * 16;
   static constexpr int STAGE = ROWS * XS + KC * WS;  // floats
+  static constexpr int ITEMS_TILE = TH * (TW / SEG);  // depthwise items of a channel
   static constexpr int SMEM_A = STAGES * STAGE * 4;
-  static constexpr int SMEM_B = NP * ES * 4;
+  // the expanded tile, then the items' squeeze sums (within the stages' space)
+  static constexpr int SMEM_B = (NP * ES + ITEMS_TILE * CT) * 4;
   static constexpr int SMEM = SMEM_A > SMEM_B ? SMEM_A : SMEM_B;
 };
 
 template <int K>
 __global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: one's copies, another's math
-expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_exp,
-                     const float* __restrict__ s1, const float* __restrict__ b1,
-                     const float* __restrict__ w_dw, const float* __restrict__ s2,
-                     const float* __restrict__ b2, float* __restrict__ out, int H, int W,
-                     int cin, int cexp, int ctiles, int tiles_w, int vec) {
+expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_exp, Bn bn,
+                     const float* __restrict__ w_dw, float* __restrict__ out,
+                     float* __restrict__ partials, int H, int W, int cin, int cexp, int ctiles,
+                     int tiles_w, int vec) {
   using G = Geometry<K>;
   constexpr int PAD = (K - 1) / 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_bn[4][CT];                      // s1, b1, s2, b2 of the tile
+  __shared__ float s_bn[4][CT];                      // BN1 scale, shift, BN2 scale, shift
   __shared__ __align__(8) float s_wdw[K * K][CT];
   float* const sm = reinterpret_cast<float*>(smem);
 
@@ -457,10 +539,17 @@ expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_ex
   const int64_t img = blockIdx.y;
   const float* const ximg = x + img * H * W * cin;
 
-  for (int i = tid; i < 4 * CT; i += THREADS) {
-    const int r = i / CT, c = c0 + i % CT;
-    const float* v = r == 0 ? s1 : r == 1 ? b1 : r == 2 ? s2 : b2;
-    s_bn[r][i % CT] = c < cexp ? v[c] : 0.0f;
+  // each BatchNorm folded: scale mul, shift bias - mean * mul (the plain version's
+  // float32 arithmetic, each op rounded)
+  for (int i = tid; i < 2 * CT; i += THREADS) {
+    const int n = i / CT, c = c0 + i % CT;
+    float scale = 0.0f, shift = 0.0f;
+    if (c < cexp) {
+      scale = bn.at(3 * n + 1)[c];
+      shift = __fsub_rn(bn.at(3 * n + 2)[c], __fmul_rn(bn.at(3 * n)[c], scale));
+    }
+    s_bn[2 * n][i % CT] = scale;
+    s_bn[2 * n + 1][i % CT] = shift;
   }
   for (int i = tid; i < K * K * CT; i += THREADS) {
     const int t = i / CT, c = c0 + i % CT;
@@ -612,18 +701,25 @@ expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_ex
   // ---- depthwise K x K, one channel a thread (a warp reads 32 neighbouring channels),
   // a window sliding along SEG columns, BN2 + SiLU, stored from registers (a warp
   // writes whole 32-byte sectors); a channel a thread keeps the K = 5 window and
-  // weights in 50 registers
-  constexpr int ITEMS = CT * TH * (TW / SEG);
+  // weights in 50 registers. Each item sums its outputs (the squeeze) in column order
+  // in a register; the output offset is 32-bit (the caller keeps B H W Cexp under
+  // 2^31), which leaves the accumulator room under the 128-register cap at K = 5
+  float* const s_sq = sm + G::NP * ES;  // [ITEMS_TILE][CT]
+  constexpr int ITEMS = CT * G::ITEMS_TILE;
   for (int it = tid; it < ITEMS; it += THREADS) {
     const int c = it % CT, rest = it / CT;
     const int r = rest / (TW / SEG), col0 = (rest % (TW / SEG)) * SEG;
     const int gy = y0 + r;
-    if (gy >= H || x0 + col0 >= W || c0 + c >= cexp) continue;
+    if (gy >= H || x0 + col0 >= W || c0 + c >= cexp) {
+      s_sq[it] = 0.0f;  // it = rest * CT + c: the item's slot, [ITEMS_TILE][CT]
+      continue;
+    }
+    float sq = 0.0f;
     float wk[K * K];
 #pragma unroll
     for (int t = 0; t < K * K; ++t) wk[t] = s_wdw[t][c];
     const float sc = s_bn[2][c], bi = s_bn[3][c];
-    float* const orow = out + ((img * H + gy) * W + x0 + col0) * cexp + c0 + c;
+    const int orow = ((static_cast<int>(img) * H + gy) * W + x0 + col0) * cexp + c0 + c;
     float win[K][K];
 #pragma unroll
     for (int dy = 0; dy < K; ++dy)
@@ -644,16 +740,29 @@ expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_ex
         for (int dy = 0; dy < K; ++dy)
 #pragma unroll
           for (int dx = 0; dx < K; ++dx) a = fmaf(win[dy][dx], wk[dy * K + dx], a);
-        orow[(int64_t)col * cexp] = silu_fast(fmaf(a, sc, bi));
+        const float v = silu_fast(fmaf(a, sc, bi));
+        out[orow + col * cexp] = v;
+        sq += v;
       }
     }
+    s_sq[it] = sq;
+  }
+  __syncthreads();
+
+  // ---- the tile's squeeze partial: one thread a channel adds the items in order; the
+  // index comes from the block's coordinates alone (no value kept live through the
+  // expand for it: at the 128-register cap that spills)
+  if (tid < CT) {
+    float s = 0.0f;
+#pragma unroll 8
+    for (int i = 0; i < G::ITEMS_TILE; ++i) s += s_sq[i * CT + tid];
+    partials[(static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * CT + tid] = s;
   }
 }
 
 template <int K>
-int launch_f32(const void* x, const void* w_exp, const void* s1, const void* b1,
-               const void* w_dw, const void* s2, const void* b2, void* out, int batch, int H,
-               int W, int cin, int cexp, cudaStream_t stream) {
+int launch_f32(const void* x, const void* w_exp, const Bn& bn, const void* w_dw, void* out,
+               void* partials, int batch, int H, int W, int cin, int cexp, cudaStream_t stream) {
   using G = Geometry<K>;
   auto kernel = expand_dw_f32_kernel<K>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -667,15 +776,16 @@ int launch_f32(const void* x, const void* w_exp, const void* s1, const void* b1,
   const int tiles_w = (W + TW - 1) / TW;
   const int64_t blocks = static_cast<int64_t>((H + TH - 1) / TH) * tiles_w * ctiles;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the depthwise's 32-bit output offsets
+  if (static_cast<int64_t>(batch) * H * W * cexp > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const int vec = cin % 4 == 0 && cexp % 4 == 0 && aligned(x) && aligned(w_exp);
   const dim3 grid(static_cast<unsigned>(blocks), batch);
   kernel<<<grid, THREADS, G::SMEM, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w_exp),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const float*>(w_dw), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<float*>(out), H, W, cin, cexp, ctiles,
-      tiles_w, vec);
+      static_cast<const float*>(x), static_cast<const float*>(w_exp), bn,
+      static_cast<const float*>(w_dw), static_cast<float*>(out), static_cast<float*>(partials),
+      H, W, cin, cexp, ctiles, tiles_w, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -683,21 +793,51 @@ int launch_f32(const void* x, const void* w_exp, const void* s1, const void* b1,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. k: 3 or 5. Returns a cudaError_t value
-// (cudaErrorInvalidValue for an unsupported dtype or k).
+// Output tiles of one image and channel tile (the partials' middle dimension):
+// dtype 0 = float32, 1 = bfloat16.
+extern "C" int mbconv_expand_dw_tiles(int dtype, int H, int W) {
+  const int th = dtype == 1 ? tc::TH : f32::TH, tw = dtype == 1 ? tc::TW : f32::TW;
+  return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+}
+
+// The partials' last dimension: Cexp rounded up to the channel tile.
+extern "C" int mbconv_expand_dw_channels(int cexp) {
+  return (cexp + CHANNEL_TILE - 1) / CHANNEL_TILE * CHANNEL_TILE;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. k: 3 or 5. bn1, bn2: mean, mul and bias [Cexp] f32
+// each. partials: f32 scratch of [batch, mbconv_expand_dw_tiles(dtype, H, W),
+// mbconv_expand_dw_channels(cexp)];
+// squeeze [batch, cexp] f32. Launches the kernel, then `squeeze_tiles_kernel`, on
+// `stream`. Returns a cudaError_t value (cudaErrorInvalidValue for an unsupported
+// dtype or k).
 extern "C" int mbconv_expand_dw(int dtype, int k, const void* x, const void* w_exp,
-                                const void* s1, const void* b1, const void* w_dw,
-                                const void* s2, const void* b2, void* out, int batch, int H,
-                                int W, int cin, int cexp, void* stream) {
-  if (batch == 0 || H == 0 || W == 0 || cexp == 0) return 0;
+                                const void* mean1, const void* mul1, const void* bias1,
+                                const void* w_dw, const void* mean2, const void* mul2,
+                                const void* bias2, void* out, void* squeeze, void* partials,
+                                int batch, int H, int W, int cin, int cexp, void* stream) {
+  if (batch == 0 || cexp == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H == 0 || W == 0)
+    return static_cast<int>(cudaMemsetAsync(squeeze, 0, sizeof(float) * batch * cexp, st));
+  const Bn bn{static_cast<const float*>(mean1), static_cast<const float*>(mul1),
+              static_cast<const float*>(bias1), static_cast<const float*>(mean2),
+              static_cast<const float*>(mul2), static_cast<const float*>(bias2)};
+  int err;
   if (dtype == 0 && k == 3)
-    return f32::launch_f32<3>(x, w_exp, s1, b1, w_dw, s2, b2, out, batch, H, W, cin, cexp, st);
-  if (dtype == 0 && k == 5)
-    return f32::launch_f32<5>(x, w_exp, s1, b1, w_dw, s2, b2, out, batch, H, W, cin, cexp, st);
-  if (dtype == 1 && k == 3)
-    return tc::launch_bf16<3>(x, w_exp, s1, b1, w_dw, s2, b2, out, batch, H, W, cin, cexp, st);
-  if (dtype == 1 && k == 5)
-    return tc::launch_bf16<5>(x, w_exp, s1, b1, w_dw, s2, b2, out, batch, H, W, cin, cexp, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    err = f32::launch_f32<3>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+  else if (dtype == 0 && k == 5)
+    err = f32::launch_f32<5>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+  else if (dtype == 1 && k == 3)
+    err = tc::launch_bf16<3>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+  else if (dtype == 1 && k == 5)
+    err = tc::launch_bf16<5>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
+  const int64_t n = static_cast<int64_t>(batch) * cexp;
+  squeeze_tiles_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(partials), static_cast<float*>(squeeze),
+      mbconv_expand_dw_tiles(dtype, H, W), cexp, mbconv_expand_dw_channels(cexp), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,12 @@
   24-channel stem and a 1280-channel head) always takes true SAME, as in JAX.
 - In eval, every stride-1 MBConv block with an expansion runs its front half (1x1
   expand -> BN -> SiLU -> depthwise -> BN -> SiLU) through
-  `ops.cuda_mbconv.fused_expand_dw`, the CUDA kernel on the GPU; strided and
-  expand-1 blocks use `F.conv2d`. A FusedMBConv block (V2) has no depthwise conv:
+  `ops.cuda_mbconv.fused_expand_dw`, the CUDA kernel on the GPU, which takes each
+  BatchNorm as flax's (mean, mul, bias) and returns, beside the front half's output,
+  its sum over H x W before the last rounding: the SE's squeeze, so the SE reads no
+  copy of the expanded tensor. Strided and expand-1 blocks use `F.conv2d`; their
+  BatchNorms in bf16 inference compute what kernel 2's do (`_conv_bn`). A
+  FusedMBConv block (V2) has no depthwise conv:
   its k x k expand (or single conv), BN, SiLU, 1x1 project and BN run on
   `F.conv2d`, and its parameters take the lukemelas pattern (`_expand_conv`,
   `_bn0`, `_project_conv`, `_bn2`).
@@ -25,7 +29,7 @@
   `image_encoder.s2d_stem`: JAX's space-to-depth stem (`StemConv(s2d=True)`)
   computes the same function, and on the H100 it is slower than the plain conv.
 - Training (fine-tuning): every block takes the unfused path on `F.conv2d` with
-  autograd, chosen on purpose: the fused front folds the BatchNorms' running
+  autograd, chosen on purpose: the fused front normalizes by the BatchNorms' running
   statistics, and training normalizes by batch statistics (BatchNorm2d's flax
   rule). Drop-connect masks come from the `generator` passed to `forward`, drawn
   before each block; `remat` recomputes each block in the backward
@@ -60,7 +64,7 @@ from mammodissect_torch.models.layers import (
     silu,
 )
 from mammodissect_torch.ops.activations import xla_bf16
-from mammodissect_torch.ops.cuda_mbconv import fold_bn, fused_expand_dw
+from mammodissect_torch.ops.cuda_mbconv import batch_norm_fma, bn_terms, fused_expand_dw
 from mammodissect_torch.ops.pooling import pool_activation
 
 
@@ -167,10 +171,39 @@ def _conv_bn(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """conv -> BatchNorm. At bf16 in inference, as XLA's CPU backend compiles the JAX
     package's program: the BatchNorm promotes its input to float32, which absorbs
     the rounding of the convolution's float32 sums (XLA's excess precision), so the
-    sums enter it unrounded; its result is rounded to bf16."""
+    sums enter it unrounded; it computes (x - mean) * mul + bias with one FMA
+    (`batch_norm_fma`, kernel 2's BatchNorm); its result is rounded to bf16."""
     if _xla_rounding(conv, bn):
-        return bn(conv(x, sum_f32=True)).to(torch.bfloat16)
+        terms = _cached(bn, "_terms_cache", bn.eps,
+                        (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                        lambda: bn_terms(bn.weight, bn.bias, bn.running_mean,
+                                         bn.running_var, bn.eps))
+        return batch_norm_fma(conv(x, sum_f32=True), *terms).to(torch.bfloat16)
     return bn(conv(x))
+
+
+def _cached(owner: nn.Module, slot: str, key, sources, make):
+    """`make()`, prepared once and kept in `owner.__dict__[slot]`, reused while `key`
+    and every source tensor stay the same. Callers cache only in inference (eval
+    mode, grad off, as on the main path): elsewhere the results keep their autograd
+    history.
+
+    The cache holds a detached alias of each source tensor with its version
+    counter at preparation (bumped by every in-place write, `load_state_dict`
+    included). The aliases keep the old storage alive, so a source whose storage was
+    replaced (`param.data = ...`, `.to()`, `load_state_dict(assign=True)`) can never
+    match an old address, and new weights are never served stale; the old storage is
+    released at the next preparation. Writes through `.data` bypass the version
+    counter and are not seen, as for autograd."""
+    cached = owner.__dict__.get(slot)
+    fresh = cached is not None and cached[0] == key and all(
+        t.data_ptr() == held.data_ptr() and t._version == version and t.shape == held.shape
+        for t, (held, version) in zip(sources, cached[1]))
+    if not fresh:
+        with torch.inference_mode(False), torch.no_grad():
+            cached = (key, tuple((t.detach(), t._version) for t in sources), make())
+        owner.__dict__[slot] = cached
+    return cached[2]
 
 
 class MBConvBlock(nn.Module):
@@ -219,78 +252,61 @@ class MBConvBlock(nn.Module):
         return self._expand_conv.compute_dtype or self._expand_conv.weight.dtype
 
     def _front_weights(self):
-        """(w_exp [Cin, Cexp], s1, b1, w_dw [k, k, Cexp], s2, b2) in the kernel's
-        layout: contiguous weights in the compute dtype, BatchNorms folded to float32
-        scale/bias."""
+        """(w_exp [Cin, Cexp], BN0's mean, mul, bias, w_dw [k, k, Cexp], BN1's mean,
+        mul, bias) in the kernel's layout: contiguous weights in the compute dtype,
+        each BatchNorm as flax's float32 terms (`bn_terms`)."""
         c_exp, c_in = self._expand_conv.weight.shape[:2]
         k = self.args.kernel_size
         dtype = self._front_dtype()
-        s1, b1 = fold_bn(self._bn0.weight, self._bn0.bias, self._bn0.running_mean,
-                         self._bn0.running_var, self._bn0.eps)
-        s2, b2 = fold_bn(self._bn1.weight, self._bn1.bias, self._bn1.running_mean,
-                         self._bn1.running_var, self._bn1.eps)
+        bn0, bn1 = (bn_terms(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+                    for bn in (self._bn0, self._bn1))
         w_exp = self._expand_conv.weight.reshape(c_exp, c_in).t().to(dtype).contiguous()
         w_dw = (self._depthwise_conv.weight.reshape(c_exp, k, k).permute(1, 2, 0)
                 .to(dtype).contiguous())
-        return w_exp, s1, b1, w_dw, s2, b2
+        return w_exp, *bn0, w_dw, *bn1
 
     def _front_weights_cached(self):
-        """`_front_weights`, prepared once and reused while no source tensor changes.
-
-        The cache holds a detached alias of each source tensor with its version
-        counter at preparation (bumped by every in-place write, `load_state_dict`
-        included), both BN eps and the compute dtype. The aliases keep the old storage alive, so a
-        source whose storage was replaced (`param.data = ...`, `.to()`,
-        `load_state_dict(assign=True)`) can never match an old address, and new
-        weights are never served stale; the old storage is released at the next
-        preparation. Writes through `.data` bypass the version counter and are not
-        seen, as for autograd. Only inference caches (eval mode, grad off, as on the
-        main path): elsewhere the weights keep their autograd history."""
+        """`_front_weights`, prepared once and reused while no source tensor, BN eps
+        or the compute dtype changes (`_cached`). Only inference caches."""
         if self.training or torch.is_grad_enabled():
             return self._front_weights()
-        sources = self._front_sources()
-        key = (self._bn0.eps, self._bn1.eps, self._front_dtype())
-        cached = self.__dict__.get("_front_cache")
-        fresh = cached is not None and cached[0] == key and all(
-            t.data_ptr() == held.data_ptr() and t._version == version and t.shape == held.shape
-            for t, (held, version) in zip(sources, cached[1]))
-        if not fresh:
-            with torch.inference_mode(False), torch.no_grad():
-                cached = (key, tuple((t.detach(), t._version) for t in sources),
-                          self._front_weights())
-            self.__dict__["_front_cache"] = cached
-        return cached[2]
+        return _cached(self, "_front_cache", (self._bn0.eps, self._bn1.eps, self._front_dtype()),
+                       self._front_sources(), self._front_weights)
 
-    def _front_fused(self, x: torch.Tensor) -> torch.Tensor:
+    def _front_fused(self, x: torch.Tensor):
         """expand -> BN0 -> SiLU -> depthwise -> BN1 -> SiLU through `fused_expand_dw`
-        on the NHWC view of x (free for channels_last x); returns NCHW channels_last."""
-        w_exp, s1, b1, w_dw, s2, b2 = self._front_weights_cached()
-        x_nhwc = x.to(w_exp.dtype).permute(0, 2, 3, 1)
-        return fused_expand_dw(x_nhwc, w_exp, s1, b1, w_dw, s2, b2).permute(0, 3, 1, 2)
+        on the NHWC view of x (free for channels_last x); returns (the output, NCHW
+        channels_last; its squeeze [B, Cexp] float32, the SE's sum)."""
+        weights = self._front_weights_cached()
+        x_nhwc = x.to(weights[0].dtype).permute(0, 2, 3, 1)
+        out, squeeze = fused_expand_dw(x_nhwc, *weights)
+        return out.permute(0, 3, 1, 2), squeeze
 
     def forward(self, x: torch.Tensor, padding: Pad2d, drop_rate: float = 0.0,
                 keep: Optional[torch.Tensor] = None, capture: bool = False):
         """`keep`: the drop-connect keep mask [B, 1, 1, 1] of a training forward,
         drawn by the caller (None keeps every sample). In training the front half is
-        unfused: the fused one folds the BatchNorms' running statistics, and
-        training normalizes by batch statistics. With `capture`, returns (output,
-        the float32 tensor a capture pools: `_residual`)."""
+        unfused: the fused one normalizes by the BatchNorms' running statistics, and
+        training by batch statistics. The fused front hands its squeeze to the SE.
+        With `capture`, returns (output, the float32 tensor a capture pools:
+        `_residual`)."""
         ba = self.args
         inp = x
+        squeeze = None
         if self.fused_front and not self.training:
             p = (ba.kernel_size - 1) // 2
             if padding != ((p, p), (p, p)):
                 raise ValueError(f"stride-1 depthwise padding {padding} is not SAME")
-            x = self._front_fused(x)
-            unrounded = None
+            x, squeeze = self._front_fused(x)
         else:
             if ba.expand_ratio != 1:
                 x = silu(_conv_bn(self._expand_conv, self._bn0, x))
             x = _conv_bn(self._depthwise_conv, self._bn1, _pad(x, padding))
-            unrounded = silu(x, rounded=False) if self.has_se and xla_bf16(x) else None
+            if self.has_se and xla_bf16(x):
+                squeeze = silu(x, rounded=False).sum(dim=(2, 3))
             x = silu(x)
         if self.has_se:
-            x = self._se(x, unrounded)
+            x = self._se(x, squeeze)
         x = _conv_bn(self._project_conv, self._bn2, x)
         return _residual(self, x, inp, drop_rate, keep, capture)
 

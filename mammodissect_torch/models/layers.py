@@ -290,15 +290,22 @@ class SqueezeExcite(nn.Module):
         self._se_reduce = Conv2d(channels, num_squeezed, 1)
         self._se_expand = Conv2d(num_squeezed, channels, 1)
 
-    def forward(self, x: torch.Tensor, unrounded: torch.Tensor | None = None) -> torch.Tensor:
-        """`unrounded` (bf16 x): x before its rounding to bf16, in float32. XLA's
-        program of the JAX package averages that (the mean's float32 accumulation
-        absorbs the SiLU product's rounding), the sum times 1 / (H W)."""
-        if xla_bf16(x):
-            src = x.float() if unrounded is None else unrounded
-            s = (src.sum(dim=(2, 3), keepdim=True) * (1.0 / (x.shape[2] * x.shape[3]))).to(x.dtype)
-        else:
+    def forward(self, x: torch.Tensor, squeeze: torch.Tensor | None = None) -> torch.Tensor:
+        """`squeeze` [B, C] float32: x's sum over H and W, precomputed (kernel 2's, or
+        the unfused block's over its SiLU's unrounded products); no reduction is taken
+        here then. XLA's program of the JAX package averages bf16 x before its
+        rounding (the mean's float32 accumulation absorbs the SiLU product's
+        rounding), as the sum times 1 / (H W); without `squeeze` a bf16 x is summed
+        as it is."""
+        n = x.shape[2] * x.shape[3]
+        if squeeze is None and xla_bf16(x):
+            squeeze = x.float().sum(dim=(2, 3))
+        if squeeze is None:
             s = x.mean(dim=(2, 3), keepdim=True)
+        elif xla_bf16(x):
+            s = (squeeze * (1.0 / n)).to(x.dtype)[:, :, None, None]
+        else:
+            s = (squeeze / n).to(x.dtype)[:, :, None, None]
         return x * sigmoid(self._se_expand(silu(self._se_reduce(s))))
 
 

@@ -2,19 +2,26 @@
 PyTorch version.
 
     x [B, H, W, Cin] -> 1x1 expand -> BN1 + SiLU -> k x k stride-1 depthwise with
-    SAME zeros -> BN2 + SiLU -> [B, H, W, Cexp]
+    SAME zeros -> BN2 + SiLU -> out [B, H, W, Cexp], and squeeze [B, Cexp] float32:
+    the sum over H x W of the last SiLU before its rounding to x's dtype
 
 Counterpart of the TPU kernel `mammodissect/ops/pallas_mbconv.py::fused_expand_dw`,
 with the same layouts at the public function (NHWC activations, w_exp [Cin, Cexp],
-w_dw [k, k, Cexp], folded BN scale/bias [Cexp] f32), for k in {3, 5}, any H, W,
-Cin, Cexp, in float32 or bfloat16. Both dtypes run the expand on the tensor cores:
-bf16 as bf16 products, float32 as 3xTF32 (each operand split into two tf32 parts and
-three products summed in fp32), which keeps float32 accuracy under the port's TF32-off
-policy (`device.set_fp32_policy`); the kernel source's note gives the design.
-`fused_expand_dw` launches the kernel for CUDA tensors and runs `expand_dw_plain` for
-CPU tensors, and only then. The kernel has no backward (neither has the TPU kernel):
-on inputs that need a gradient it raises. `fused_expand_dw.launches` counts kernel
-launches.
+w_dw [k, k, Cexp]), for k in {3, 5}, any H, W, Cin, Cexp, in float32 or bfloat16.
+Each BatchNorm comes as flax's inference terms (`bn_terms`: mean, mul = scale *
+(1 / sqrt(var + eps)) and bias, float32 [Cexp]), so that the bf16 path computes
+(v - mean) * mul + bias as the JAX package's bf16 program does (`batch_norm_fma`).
+The squeeze is what the block's SE averages: the kernel sums it from the values it
+holds, so no pass reads the expanded tensor back. Both dtypes run the expand on the
+tensor cores: bf16 as bf16 products, float32 as 3xTF32 (each operand split into two
+tf32 parts and three products summed in fp32), which keeps float32 accuracy under the
+port's TF32-off policy (`device.set_fp32_policy`); the kernel source's note gives the
+design. `fused_expand_dw` launches the kernel for CUDA tensors and runs
+`expand_dw_plain` for CPU tensors, and only then. The kernel has no backward (neither
+has the TPU kernel): on inputs that need a gradient it raises.
+`fused_expand_dw.launches` counts the kernel's launches and
+`fused_expand_dw.reduce_launches` those of its second kernel, which adds the squeeze's
+tile partials (one a launch).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from mammodissect_torch.ops import kernels
 from mammodissect_torch.ops.activations import silu_chain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+FP32_LAUNCH_ELEMENTS = 2 ** 31 - 1  # output values of one fp32 launch (32-bit offsets)
 
 
 def fold_bn(weight, bias, running_mean, running_var, eps: float = 1e-3):
@@ -35,21 +43,55 @@ def fold_bn(weight, bias, running_mean, running_var, eps: float = 1e-3):
     return scale, bias.float() - running_mean.float() * scale
 
 
-def expand_dw_plain(x: torch.Tensor, w_exp: torch.Tensor, bn1_scale: torch.Tensor,
-                    bn1_bias: torch.Tensor, w_dw: torch.Tensor, bn2_scale: torch.Tensor,
-                    bn2_bias: torch.Tensor) -> torch.Tensor:
+def bn_terms(weight, bias, running_mean, running_var, eps: float = 1e-3):
+    """Inference BatchNorm as flax computes it, (x - mean) * mul + bias: the float32
+    vectors (mean, mul, bias), mul = (1 / sqrt(var + eps)) * scale (IEEE square root
+    and division, the same bits on the CPU and the GPU). XLA's CPU program computes
+    flax's rsqrt as the x86 `rsqrtps` estimate refined by two Newton steps, which is
+    not correctly rounded (~13% of values one ulp off) and depends on the host's
+    table; the port does not emulate it (PERF.md section 6)."""
+    mul = torch.reciprocal(torch.sqrt(running_var.float() + eps)) * weight.float()
+    return running_mean.float(), mul, bias.float()
+
+
+def batch_norm_fma(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """(x - mean) * mul + bias over float32 NCHW x with [C] vectors, as XLA's CPU
+    program of flax's BatchNorm computes it: the subtraction rounded, then the
+    product and the sum in one fused multiply-add (LLVM contracts them), bit for bit
+    where the vectors are XLA's. On the GPU `torch.addcmul` is that FMA (its CUDA
+    kernel contracts a + b * c; held bit for bit by the kernel's `__fmaf_rn` in
+    `chip_smoke.py` phase 5); on the CPU it is one only on some builds (AVX2 and
+    AVX-512 dispatch, not the default), so there the sum is taken in float64, which
+    holds the product exactly, and rounded to float32: a second rounding that moves
+    the result only where the float64 sum lands on a float32 midpoint."""
+    t = x - mean[:, None, None]
+    mul, bias = mul[:, None, None], bias[:, None, None]
+    if x.is_cuda:  # written over the difference: no third tensor of x's size
+        return torch.addcmul(bias, t, mul, out=t)
+    return (t.double() * mul.double() + bias.double()).float()
+
+
+def expand_dw_plain(x: torch.Tensor, w_exp: torch.Tensor, bn1_mean: torch.Tensor,
+                    bn1_mul: torch.Tensor, bn1_bias: torch.Tensor, w_dw: torch.Tensor,
+                    bn2_mean: torch.Tensor, bn2_mul: torch.Tensor, bn2_bias: torch.Tensor):
     """The kernel's arithmetic in plain PyTorch: inputs and weights of x's dtype, the
     convolutions summed in float32 (`F.conv2d` 1x1 expand, `F.pad` + depthwise
-    `F.conv2d`), result in x's dtype.
+    `F.conv2d`). Returns (out in x's dtype, squeeze [B, Cexp] float32).
 
-    float32: expand -> BN -> SiLU -> depthwise -> BN -> SiLU, all in float32.
+    float32: expand -> BN -> SiLU -> depthwise -> BN -> SiLU, all in float32, each
+    BatchNorm folded as the kernel folds it (scale mul, shift bias - mean * mul); the
+    squeeze sums the output.
     bf16: the JAX MBConv block's front half as XLA compiles it at bf16: each
     convolution's float32 sums enter its BatchNorm unrounded (the BatchNorm's
-    float32 promotion absorbs their rounding), the BatchNorm's result is rounded,
-    then the SiLU's op chain rounds each op (`ops.activations.silu_chain`); the depthwise
-    reads the bf16 tile. On the GPU the bf16 expand is a bf16 GEMM with float32 sums
-    on the tensor cores (`torch.mm`'s out_dtype), the kernel's arithmetic: the two
-    then agree bit for bit (measured at every B5 shape on the H100, PERF.md)."""
+    float32 promotion absorbs their rounding), the BatchNorm (`batch_norm_fma`)'s
+    result is rounded, then the SiLU's op chain rounds each op
+    (`ops.activations.silu_chain`); the depthwise reads the bf16 tile. The squeeze
+    sums the last SiLU's product unrounded (`silu_chain(..., rounded=False)`), the
+    unfused block's arithmetic for its SE. On the GPU the bf16 expand is a bf16 GEMM
+    with float32 sums on the tensor cores (`torch.mm`'s out_dtype), the kernel's
+    arithmetic: the two outputs then agree bit for bit (measured at every B5 shape on
+    the H100, PERF.md); the squeezes agree to the float32 sums' order."""
     dtype = x.dtype
     k = w_dw.shape[0]
     b, h, w, cin = x.shape
@@ -61,23 +103,28 @@ def expand_dw_plain(x: torch.Tensor, w_exp: torch.Tensor, bn1_scale: torch.Tenso
     else:
         e = F.conv2d(x.float().permute(0, 3, 1, 2), w_exp.float().t().reshape(cexp, cin, 1, 1))
     w_dw = w_dw.float().permute(2, 0, 1).reshape(cexp, 1, k, k)
-    s1, b1 = bn1_scale[:, None, None], bn1_bias[:, None, None]
-    s2, b2 = bn2_scale[:, None, None], bn2_bias[:, None, None]
     if dtype == torch.bfloat16:
-        e = silu_chain((e * s1 + b1).to(dtype))
+        e = silu_chain(batch_norm_fma(e, bn1_mean, bn1_mul, bn1_bias).to(dtype))
         dw = F.conv2d(F.pad(e.float(), (pad, pad, pad, pad)), w_dw, groups=cexp)
-        y = silu_chain((dw * s2 + b2).to(dtype))
-        return y.permute(0, 2, 3, 1).contiguous()
+        y = silu_chain(batch_norm_fma(dw, bn2_mean, bn2_mul, bn2_bias).to(dtype), rounded=False)
+        return y.to(dtype).permute(0, 2, 3, 1).contiguous(), y.sum(dim=(2, 3))
+    (s1, b1), (s2, b2) = (_fold_terms(*bn) for bn in ((bn1_mean, bn1_mul, bn1_bias),
+                                                       (bn2_mean, bn2_mul, bn2_bias)))
     e = F.silu(e * s1 + b1)
     e = e.to(dtype).float()  # the unfused graph stores the expanded tensor in dtype
     dw = F.conv2d(F.pad(e, (pad, pad, pad, pad)), w_dw, groups=cexp)
     y = F.silu(dw * s2 + b2)
-    return y.to(dtype).permute(0, 2, 3, 1).contiguous()
+    return y.to(dtype).permute(0, 2, 3, 1).contiguous(), y.sum(dim=(2, 3))
 
 
-def _launch(x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias):
+def _fold_terms(mean, mul, bias):
+    """The float32 path's BatchNorm as the kernel folds it: [C, 1, 1] scale and shift."""
+    return mul[:, None, None], (bias - mean * mul)[:, None, None]
+
+
+def _launch(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2):
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias)):
+            t.requires_grad for t in (x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2)):
         # its output would carry no gradient: refuse rather than train on a silent zero
         raise RuntimeError("fused_expand_dw: the kernel has no backward; call it under "
                            "torch.no_grad() or on inputs that need no gradient")
@@ -95,44 +142,62 @@ def _launch(x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias):
         raise ValueError(f"fused_expand_dw: w_exp {tuple(w_exp.shape)} != ({cin}, {cexp})")
     if w_exp.dtype != x.dtype or w_dw.dtype != x.dtype:
         raise TypeError("fused_expand_dw: weights must have the activation dtype")
-    vecs = [v.float().contiguous() for v in (bn1_scale, bn1_bias, bn2_scale, bn2_bias)]
+    vecs = [v.float().contiguous() for v in (m1, mul1, b1, m2, mul2, b2)]
     if any(tuple(v.shape) != (cexp,) for v in vecs):
-        raise ValueError(f"fused_expand_dw: BN scale/bias must be [{cexp}]")
+        raise ValueError(f"fused_expand_dw: BN mean/mul/bias must be [{cexp}]")
     tensors = [x, w_exp, w_dw, *vecs]
     if any(t.device != x.device for t in tensors):
         raise ValueError("fused_expand_dw: all inputs must be on one device")
-    if b > 65535:
-        raise ValueError(f"fused_expand_dw: batch {b} exceeds one launch")
+    chunk = 65535  # images a launch (the grid's batch dimension)
+    if x.dtype == torch.float32:
+        # the fp32 kernel's output offsets are 32-bit: a launch writes at most
+        # FP32_LAUNCH_ELEMENTS values (B5 fp32 at batch 16 writes 3.3e8 at most)
+        per_image = h * w * cexp
+        if per_image > FP32_LAUNCH_ELEMENTS:
+            raise ValueError(f"fused_expand_dw: {h} x {w} x {cexp} exceeds one fp32 launch")
+        chunk = max(1, min(chunk, FP32_LAUNCH_ELEMENTS // max(per_image, 1)))
     x, w_exp, w_dw = x.contiguous(), w_exp.contiguous(), w_dw.contiguous()
-    s1, b1, s2, b2 = vecs
-    out = torch.empty((b, h, w, cexp), dtype=x.dtype, device=x.device)
     lib = kernels.load("mbconv_expand_dw")
+    code = _DTYPE_CODES[x.dtype]
+    tiles, cpad = lib.mbconv_expand_dw_tiles(code, h, w), lib.mbconv_expand_dw_channels(cexp)
+    out = torch.empty((b, h, w, cexp), dtype=x.dtype, device=x.device)
+    squeeze = torch.empty((b, cexp), dtype=torch.float32, device=x.device)
+    partials = torch.empty((min(b, chunk), tiles, cpad), dtype=torch.float32, device=x.device)
     fn = lib.mbconv_expand_dw
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_DTYPE_CODES[x.dtype], k, x.data_ptr(), w_exp.data_ptr(), s1.data_ptr(),
-                b1.data_ptr(), w_dw.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                b, h, w, cin, cexp, stream)
-    kernels.check(rc, "mbconv_expand_dw")
-    fused_expand_dw.launches += 1
-    return out
+        for i in range(0, b, chunk):
+            n = min(chunk, b - i)
+            rc = fn(code, k, x[i].data_ptr(), w_exp.data_ptr(),
+                    *(v.data_ptr() for v in vecs[:3]), w_dw.data_ptr(),
+                    *(v.data_ptr() for v in vecs[3:]), out[i].data_ptr(), squeeze[i].data_ptr(),
+                    partials.data_ptr(), n, h, w, cin, cexp, stream)
+            kernels.check(rc, "mbconv_expand_dw")
+            if h and w and cexp:
+                fused_expand_dw.launches += 1
+                fused_expand_dw.reduce_launches += 1
+    return out, squeeze
 
 
-def fused_expand_dw(x: torch.Tensor, w_exp: torch.Tensor, bn1_scale: torch.Tensor,
-                    bn1_bias: torch.Tensor, w_dw: torch.Tensor, bn2_scale: torch.Tensor,
-                    bn2_bias: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, Cin] -> [B, H, W, Cexp] (expand + BN + SiLU + dw kxk/s1 + BN + SiLU).
+def fused_expand_dw(x: torch.Tensor, w_exp: torch.Tensor, bn1_mean: torch.Tensor,
+                    bn1_mul: torch.Tensor, bn1_bias: torch.Tensor, w_dw: torch.Tensor,
+                    bn2_mean: torch.Tensor, bn2_mul: torch.Tensor, bn2_bias: torch.Tensor):
+    """x [B, H, W, Cin] -> (out [B, H, W, Cexp], squeeze [B, Cexp] float32): expand +
+    BN + SiLU + dw kxk/s1 + BN + SiLU, and the last SiLU summed over H x W before its
+    rounding (the SE's mean times H W).
 
-    Weights: w_exp [Cin, Cexp] and w_dw [k, k, Cexp] in x's dtype; BN scale and
-    bias [Cexp] float32 (`fold_bn`). CUDA tensors go through the kernel (a launch
-    error raises), CPU tensors through `expand_dw_plain`."""
+    Weights: w_exp [Cin, Cexp] and w_dw [k, k, Cexp] in x's dtype; each BatchNorm as
+    its mean, mul and bias [Cexp] float32 (`bn_terms`). CUDA tensors go through the
+    kernel (a launch error raises), CPU tensors through `expand_dw_plain`."""
+    args = (x, w_exp, bn1_mean, bn1_mul, bn1_bias, w_dw, bn2_mean, bn2_mul, bn2_bias)
     if x.device.type == "cpu":
-        return expand_dw_plain(x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias)
+        return expand_dw_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_expand_dw: unsupported device {x.device}")
-    return _launch(x, w_exp, bn1_scale, bn1_bias, w_dw, bn2_scale, bn2_bias)
+    return _launch(*args)
 
 
 fused_expand_dw.launches = 0
+fused_expand_dw.reduce_launches = 0

@@ -24,10 +24,11 @@ PRECISION_SHAPES = [(3, 38, 29, 40, 240), (5, 19, 17, 64, 384), (5, 13, 11, 20, 
 
 
 def expand_dominant_args(b, h, w, cin, cexp, k, dtype, device, seed=6):
-    """x and the expand at unit scale, depthwise weights ~1/K^2 and no BN2 bias: each
-    output is about the mean of its window's expanded values, so a fault of the
-    expand (a dropped channel chunk, a wrong tail tile, a lost tf32 part) moves it
-    past the tolerance. Inputs and weights in `dtype`."""
+    """x and the expand at unit scale, depthwise weights ~1/K^2 and no BN2 mean or
+    bias: each output is about the mean of its window's expanded values, so a fault
+    of the expand (a dropped channel chunk, a wrong tail tile, a lost tf32 part)
+    moves it past the tolerance. Inputs and weights in `dtype`; each BatchNorm as
+    (mean, mul, bias)."""
     rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0):
@@ -36,9 +37,11 @@ def expand_dominant_args(b, h, w, cin, cexp, k, dtype, device, seed=6):
     def pos(n):
         return torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(device)
 
-    return (t(b, h, w, cin).to(dtype), t(cin, cexp, scale=cin ** -0.5).to(dtype),
-            pos(cexp), t(cexp, scale=0.1), ((1.0 + t(k, k, cexp, scale=0.1)) / k ** 2).to(dtype),
-            pos(cexp), torch.zeros(cexp, device=device))
+    x, w_exp = t(b, h, w, cin).to(dtype), t(cin, cexp, scale=cin ** -0.5).to(dtype)
+    mul1, bias1 = pos(cexp), t(cexp, scale=0.1)
+    w_dw = ((1.0 + t(k, k, cexp, scale=0.1)) / k ** 2).to(dtype)
+    mul2, zeros = pos(cexp), torch.zeros(cexp, device=device)
+    return x, w_exp, t(cexp, scale=0.1), mul1, bias1, w_dw, zeros, mul2, zeros
 
 
 def tf32(t: torch.Tensor) -> torch.Tensor:
@@ -47,11 +50,12 @@ def tf32(t: torch.Tensor) -> torch.Tensor:
     return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def expand_dw_f64(x, w_exp, s1, b1, w_dw, s2, b2, one_tf32_pass=False):
+def expand_dw_f64(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2, one_tf32_pass=False):
     """expand -> BN1 + SiLU -> k x k depthwise (SAME zeros) -> BN2 + SiLU on NHWC
-    float32 inputs, in float64. With `one_tf32_pass` the expand is one pass of the
-    tensor cores' arithmetic instead, the rest staying float64: operands rounded to
-    tf32 and their exact products summed in float32."""
+    float32 inputs, in float64, each BatchNorm (v - mean) * mul + bias. With
+    `one_tf32_pass` the expand is one pass of the tensor cores' arithmetic instead,
+    the rest staying float64: operands rounded to tf32 and their exact products
+    summed in float32."""
     k = w_dw.shape[0]
     cexp = w_exp.shape[1]
     pad = (k - 1) // 2
@@ -59,10 +63,11 @@ def expand_dw_f64(x, w_exp, s1, b1, w_dw, s2, b2, one_tf32_pass=False):
         e = (tf32(x) @ tf32(w_exp)).double()
     else:
         e = x.double() @ w_exp.double()
-    e = F.silu(e * s1.double() + b1.double()).permute(0, 3, 1, 2)
+    e = F.silu((e - m1.double()) * mul1.double() + b1.double()).permute(0, 3, 1, 2)
     dw = F.conv2d(F.pad(e, (pad, pad, pad, pad)),
                   w_dw.double().permute(2, 0, 1).reshape(cexp, 1, k, k), groups=cexp)
-    y = F.silu(dw * s2.double()[:, None, None] + b2.double()[:, None, None])
+    m2, mul2, b2 = (v.double()[:, None, None] for v in (m2, mul2, b2))
+    y = F.silu((dw - m2) * mul2 + b2)
     return y.permute(0, 2, 3, 1)
 
 
@@ -83,9 +88,9 @@ def main(argv):
         args = expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, "cpu")
         want = expand_dw_f64(*args)
         row = {"one tf32 pass": relative_err(expand_dw_f64(*args, one_tf32_pass=True), want),
-               "float32": relative_err(expand_dw_plain(*args).double(), want)}
+               "float32": relative_err(expand_dw_plain(*args)[0].double(), want)}
         if on_card:
-            got = fused_expand_dw(*(a.cuda() for a in args)).double().cpu()
+            got = fused_expand_dw(*(a.cuda() for a in args))[0].double().cpu()
             row["kernel"] = relative_err(got, want)
         print(f"k{k} {cin}->{cexp} @ {h}x{w}: "
               + ", ".join(f"{name} {err:.3g}" for name, err in row.items()), flush=True)

@@ -206,9 +206,9 @@ def test_bf16_fine_tune_keeps_f32_weights_and_evals_through_bf16_kernel(monkeypa
     calls = []
     plain = cuda_mbconv.expand_dw_plain
 
-    def spy(x, w_exp, *rest):
-        calls.append((x.dtype, w_exp.dtype, rest[2].dtype))
-        return plain(x, w_exp, *rest)
+    def spy(x, w_exp, mean1, mul1, bias1, w_dw, *rest):
+        calls.append((x.dtype, w_exp.dtype, w_dw.dtype))
+        return plain(x, w_exp, mean1, mul1, bias1, w_dw, *rest)
 
     monkeypatch.setattr(cuda_mbconv, "expand_dw_plain", spy)
     cfg = _cfg(dtype="bfloat16")

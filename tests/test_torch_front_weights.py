@@ -64,7 +64,14 @@ def test_new_weights_reach_the_next_forward(change):
     x = _input()
     model = _tower(_random_state(_tower(), seed=1))
     _forward(model, x)  # prepares and caches the fused blocks' weights
-    new_state, dtype = _random_state(model, seed=2), torch.float32
+    new_state, dtype = _change_weights(model, change)
+    _assert_same(_forward(model, x), _forward(_tower(new_state, dtype), x))
+
+
+def _change_weights(model, change, dtype=torch.float32):
+    """Gives `model`, built with `dtype`, new weights by `change`; returns (its new
+    state, the dtype to build a fresh tower with)."""
+    new_state = _random_state(model, seed=2)
     if change == "load_state_dict":
         model.load_state_dict(new_state)
     elif change == "load_state_dict assign":
@@ -85,6 +92,26 @@ def test_new_weights_reach_the_next_forward(change):
         for m in model.modules():
             if isinstance(m, torch.nn.Conv2d):
                 m.to(dtype)
+    return new_state, dtype
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in-place edit",
+                                    "load_state_dict assign", "storage replaced"])
+def test_new_batch_norm_terms_reach_the_next_bf16_forward(change):
+    """In bf16 inference the unfused convolutions' BatchNorms keep their (mean, mul,
+    bias) prepared, reused while nothing changes; new statistics reach the next
+    forward."""
+    x = _input()
+    model = _tower(_random_state(_tower(), seed=1), torch.bfloat16)
+    first = _forward(model, x)
+    held = {name: bn.__dict__["_terms_cache"][2] for name, bn in model.named_modules()
+            if "_terms_cache" in bn.__dict__}
+    assert len(held) >= 4  # the stem, the head and the unfused blocks' BatchNorms
+    _assert_same(_forward(model, x), first)
+    for name, bn in model.named_modules():
+        if name in held:
+            assert bn.__dict__["_terms_cache"][2] is held[name]
+    new_state, dtype = _change_weights(model, change, torch.bfloat16)
     _assert_same(_forward(model, x), _forward(_tower(new_state, dtype), x))
 
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from mammodissect_torch.ops import cuda_mbconv
 from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 from mammodissect_torch.ops.cuda_wpmi import (
     soft_wpmi_gather_logsum,
@@ -105,7 +106,7 @@ def test_wpmi_kernel_raises_on_an_index_outside_the_rows(cuda, n, bad):
 def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=4):
     """bf16 at the scales of test_pallas_mbconv.py, where its tolerance was set (at
     unit scale one bf16 ulp of the rounded expanded tensor exceeds it); fp32 at unit
-    scale."""
+    scale. Each BatchNorm as (mean, mul, bias)."""
     rng = np.random.default_rng(seed)
     bf16 = dtype == torch.bfloat16
 
@@ -113,11 +114,22 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=4):
         a = rng.uniform(lo, 1.5, shape) if lo is not None else rng.normal(size=shape) * scale
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
-    return (t(b, h, w, cin, scale=0.1 if bf16 else 1.0).to(dtype),
-            t(cin, cexp, scale=0.05 if bf16 else cin ** -0.5).to(dtype),
-            t(cexp, lo=0.5), t(cexp, scale=0.1),
-            t(k, k, cexp, scale=0.05 if bf16 else 0.2).to(dtype),
-            t(cexp, lo=0.5), t(cexp, scale=0.1))
+    x = t(b, h, w, cin, scale=0.1 if bf16 else 1.0).to(dtype)
+    w_exp = t(cin, cexp, scale=0.05 if bf16 else cin ** -0.5).to(dtype)
+    mul1, bias1 = t(cexp, lo=0.5), t(cexp, scale=0.1)
+    w_dw = t(k, k, cexp, scale=0.05 if bf16 else 0.2).to(dtype)
+    mul2, bias2 = t(cexp, lo=0.5), t(cexp, scale=0.1)
+    return (x, w_exp, t(cexp, scale=0.1), mul1, bias1, w_dw, t(cexp, scale=0.1), mul2, bias2)
+
+
+def _assert_squeeze_close(got, want, out, atol, rtol):
+    """Squeezes [B, Cexp] of an output `out` [B, H, W, Cexp]: within the sum over H x
+    W of the elementwise tolerance, atol H W + rtol sum |out|. bf16 outputs agree bit
+    for bit, so there only the float32 sums' order differs: rtol 1e-5, atol 0."""
+    n = out.shape[1] * out.shape[2]
+    bound = atol * n + rtol * out.float().abs().sum(dim=(1, 2))
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, dict(atol=2e-3, rtol=2e-2)),
@@ -126,12 +138,18 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=4):
                                             (3, 6, 5, 512, 3072), (5, 9, 33, 176, 1056)])
 def test_mbconv_kernel_matches_plain(cuda, dtype, tol, k, h, w, cin, cexp):
     args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
-    before = fused_expand_dw.launches
-    got = fused_expand_dw(*args)
+    before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
+    got, squeeze = fused_expand_dw(*args)
     torch.cuda.synchronize()
-    assert fused_expand_dw.launches == before + 1
-    want = expand_dw_plain(*args)
+    assert (fused_expand_dw.launches, fused_expand_dw.reduce_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want, want_squeeze = expand_dw_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    _assert_squeeze_close(squeeze, want_squeeze, want, **_squeeze_tol(dtype, tol))
+
+
+def _squeeze_tol(dtype, tol):
+    return dict(atol=0.0, rtol=1e-5) if dtype == torch.bfloat16 else tol
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, dict(atol=2e-3, rtol=2e-2)),
@@ -141,11 +159,34 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, tol, k, h, w, cin, cexp):
                                             (3, 48, 29, 256, 1536)])
 def test_mbconv_kernel_full_b5_shape(cuda, dtype, tol, k, h, w, cin, cexp):
     """Full-resolution block shapes at 1520x912: B5's blocks 4-7 and 9-12 (one per k),
-    its 48 x 29 blocks 37-38 and 28-35, and EfficientNetV2-S's 48 x 29 blocks 26-39."""
+    its 48 x 29 blocks 37-38 and 28-35, and EfficientNetV2-S's 48 x 29 blocks 26-39.
+    The squeeze against the plain version's, and two launches bit-identical (a
+    fixed summation order, no float atomics)."""
     args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
-    got = fused_expand_dw(*args)
-    want = expand_dw_plain(*args)
+    got, squeeze = fused_expand_dw(*args)
+    want, want_squeeze = expand_dw_plain(*args)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    _assert_squeeze_close(squeeze, want_squeeze, want, **_squeeze_tol(dtype, tol))
+    again, squeeze_again = fused_expand_dw(*args)
+    assert torch.equal(again, got) and torch.equal(squeeze_again, squeeze)
+
+
+@pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 380, 228, 40, 240), (5, 48, 29, 304, 1824)])
+def test_mbconv_kernel_fp32_call_split_into_launches(cuda, monkeypatch, k, h, w, cin, cexp):
+    """An fp32 call whose output exceeds `FP32_LAUNCH_ELEMENTS` values (32-bit
+    offsets) runs as launches of whole images, which share one partials buffer. The
+    limit is lowered to two images, so batch 5 takes three launches (2, 2 and 1
+    images) at B5 shapes: out and squeeze equal one launch's bit for bit, and each
+    counter grows by the three launches."""
+    args = _mbconv_args(5, h, w, cin, cexp, k, torch.float32, cuda)
+    whole, whole_squeeze = fused_expand_dw(*args)
+    monkeypatch.setattr(cuda_mbconv, "FP32_LAUNCH_ELEMENTS", 2 * h * w * cexp + 1)
+    before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
+    split, split_squeeze = fused_expand_dw(*args)
+    torch.cuda.synchronize()
+    assert (fused_expand_dw.launches, fused_expand_dw.reduce_launches) == \
+        (before[0] + 3, before[1] + 3)
+    assert torch.equal(split, whole) and torch.equal(split_squeeze, whole_squeeze)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, dict(atol=2e-3, rtol=2e-2)),
@@ -158,9 +199,10 @@ def test_mbconv_kernel_odd_widths(cuda, dtype, tol, k, h, w, cin, cexp):
     stores in bf16). fp32 stages element by element only where a width is not a
     multiple of 4 or a pointer is not 16-byte aligned: `test_mbconv_kernel_fp32_element_staging`."""
     args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
-    got = fused_expand_dw(*args)
-    want = expand_dw_plain(*args)
+    got, squeeze = fused_expand_dw(*args)
+    want, want_squeeze = expand_dw_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    _assert_squeeze_close(squeeze, want_squeeze, want, **_squeeze_tol(dtype, tol))
 
 
 @pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 38, 29, 40, 240), (5, 19, 17, 64, 384),
@@ -170,8 +212,8 @@ def test_mbconv_kernel_expand_dominates(cuda, k, h, w, cin, cexp):
     """rtol 2^-7 is one to two bf16 ulps of the output; atol 4e-3 covers two one-ulp
     flips of the bf16 expanded tensor (weighted ~1/K^2) at outputs near 0."""
     args = expand_dominant_args(2, h, w, cin, cexp, k, torch.bfloat16, cuda)
-    got = fused_expand_dw(*args)
-    want = expand_dw_plain(*args)
+    got, _ = fused_expand_dw(*args)
+    want, _ = expand_dw_plain(*args)
     torch.testing.assert_close(got.float(), want.float(), atol=4e-3, rtol=2.0 ** -7)
 
 
@@ -184,7 +226,7 @@ def test_mbconv_kernel_fp32_against_float64(cuda, k, h, w, cin, cexp):
     10x; one tf32 pass (emulated) is off by 1.6e-4 to 3.6e-4 (1 + |x|), missing the
     tolerance by 16x or more, which the test asserts at the same inputs."""
     args = expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, cuda)
-    got = fused_expand_dw(*args).double().cpu()
+    got = fused_expand_dw(*args)[0].double().cpu()
     cpu_args = [a.cpu() for a in args]
     want = expand_dw_f64(*cpu_args)
     assert within_f64_tol(got, want), f"{relative_err(got, want):.3g} > {F64_TOL}"
@@ -211,8 +253,8 @@ def test_mbconv_kernel_fp32_element_staging(cuda, k, h, w, cin, cexp, shifted):
     if shifted:
         i = ("x", "w_exp").index(shifted)
         args[i] = _unaligned(args[i])
-    got = fused_expand_dw(*args)
-    torch.testing.assert_close(got, expand_dw_plain(*args), atol=1e-4, rtol=1e-4)
+    got, _ = fused_expand_dw(*args)
+    torch.testing.assert_close(got, expand_dw_plain(*args)[0], atol=1e-4, rtol=1e-4)
     got, want = got.double().cpu(), expand_dw_f64(*(a.cpu() for a in args))
     assert within_f64_tol(got, want), f"{relative_err(got, want):.3g} > {F64_TOL}"
 

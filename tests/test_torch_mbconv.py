@@ -1,8 +1,9 @@
 """Kernel 2 of the PyTorch port: the MBConv front half
 (`mammodissect_torch/ops/cuda_mbconv.py`) against the JAX package's XLA twin and
 Pallas kernel (interpret mode) in bf16, against the JAX MBConvBlock's front half
-for k3 and k5 in f32 and in bf16 (the kernel itself against its plain version runs
-in test_torch_gpu.py)."""
+for k3 and k5 in f32 and in bf16, and its squeeze against the SE's mean of JAX's
+bf16 block (the kernel itself against its plain version runs in
+test_torch_gpu.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,40 +13,52 @@ import torch
 from mammodissect.ops.pallas_mbconv import fold_bn as jax_fold_bn
 from mammodissect.ops.pallas_mbconv import fused_expand_dw as jax_fused_expand_dw
 from mammodissect.ops.pallas_mbconv import xla_expand_dw
-from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fold_bn, fused_expand_dw
+from mammodissect_torch.ops.cuda_mbconv import (
+    bn_terms,
+    expand_dw_plain,
+    fold_bn,
+    fused_expand_dw,
+)
 
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)  # bf16 in/out, f32 accumulation, other sum order
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _setup(b=2, h=38, w=28, cin=40, cexp=240, k=5, seed=0):
+    """(x, w_exp, w_dw, [BN1, BN2] as (scale, bias, mean, var)) as numpy float32."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, h, w, cin)).astype(np.float32) * 0.1
     w_exp = rng.normal(size=(cin, cexp)).astype(np.float32) * 0.05
     w_dw = rng.normal(size=(k, k, cexp)).astype(np.float32) * 0.05
-    bn = [jax_fold_bn(rng.uniform(0.5, 1.5, cexp), rng.normal(size=cexp) * 0.1,
-                      rng.normal(size=cexp) * 0.1, rng.uniform(0.5, 1.5, cexp))
-          for _ in range(2)]
-    (s1, b1), (s2, b2) = bn
-    return x, w_exp, s1, b1, w_dw, s2, b2
+    bns = [tuple(a.astype(np.float32) for a in (
+        rng.uniform(0.5, 1.5, cexp), rng.normal(size=cexp) * 0.1,
+        rng.normal(size=cexp) * 0.1, rng.uniform(0.5, 1.5, cexp))) for _ in range(2)]
+    return x, w_exp, w_dw, bns
 
 
-def _torch_args(args, dtype):
-    x, w_exp, s1, b1, w_dw, s2, b2 = (torch.from_numpy(np.asarray(a, np.float32)) for a in args)
-    return x.to(dtype), w_exp.to(dtype), s1, b1, w_dw.to(dtype), s2, b2
+def _torch_args(setup, dtype):
+    """The port's arguments: each BatchNorm as its (mean, mul, bias) terms."""
+    x, w_exp, w_dw, bns = setup
+    (m1, mul1, b1), (m2, mul2, b2) = (bn_terms(*(torch.from_numpy(a) for a in bn)) for bn in bns)
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(w_exp).to(dtype), m1, mul1, b1,
+            torch.from_numpy(w_dw).to(dtype), m2, mul2, b2)
 
 
-def _jax_bf16(args):
-    x, *rest = args
-    return (jnp.asarray(x, jnp.bfloat16), *rest)
+def _jax_bf16(setup):
+    """The JAX twins' arguments: each BatchNorm folded (`pallas_mbconv.fold_bn`)."""
+    x, w_exp, w_dw, bns = setup
+    (s1, b1), (s2, b2) = (jax_fold_bn(*bn) for bn in bns)
+    return jnp.asarray(x, jnp.bfloat16), w_exp, s1, b1, w_dw, s2, b2
 
 
 def test_plain_bf16_matches_xla_and_pallas():
+    """The JAX twins fold each BatchNorm, the port takes flax's unfolded terms: both
+    within BF16_TOL."""
     args = _setup()
     want_xla = np.asarray(xla_expand_dw(*_jax_bf16(args)), np.float32)
     want_pallas = np.asarray(jax_fused_expand_dw(*_jax_bf16(args), t=19, interpret=True),
                              np.float32)
-    got = expand_dw_plain(*_torch_args(args, torch.bfloat16))
+    got, _ = expand_dw_plain(*_torch_args(args, torch.bfloat16))
     assert got.dtype == torch.bfloat16 and got.shape == want_xla.shape
     got = got.float().numpy()
     np.testing.assert_allclose(got, want_xla, **BF16_TOL)
@@ -57,17 +70,18 @@ def test_plain_bf16_border_rows():
     on the first and last rows and columns."""
     args = _setup(b=1, h=19, w=28)
     want = np.asarray(xla_expand_dw(*_jax_bf16(args)), np.float32)
-    got = expand_dw_plain(*_torch_args(args, torch.bfloat16)).float().numpy()
+    got = expand_dw_plain(*_torch_args(args, torch.bfloat16))[0].float().numpy()
     for sl in (np.s_[:, :2], np.s_[:, -2:], np.s_[:, :, :2], np.s_[:, :, -2:]):
         np.testing.assert_allclose(got[sl], want[sl], **BF16_TOL)
 
 
 def test_wrapper_on_cpu_is_plain_and_launches_nothing():
     args = _torch_args(_setup(b=1, h=9, w=7, cin=8, cexp=16, k=3), torch.float32)
-    before = fused_expand_dw.launches
+    before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
     got = fused_expand_dw(*args)
-    assert fused_expand_dw.launches == before
-    np.testing.assert_array_equal(got.numpy(), expand_dw_plain(*args).numpy())
+    assert (fused_expand_dw.launches, fused_expand_dw.reduce_launches) == before
+    for g, w in zip(got, expand_dw_plain(*args)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 @pytest.mark.parametrize("k,h,w", [(3, 11, 7), (5, 9, 13)])
@@ -107,23 +121,23 @@ def test_plain_f32_matches_jax_mbconv_front_half(k, h, w):
                         "bn1": {"mean": bns[1]["mean"], "var": bns[1]["var"]}},
     }
     want = np.asarray(Front().apply(variables, jnp.asarray(x)))
-    t = {key: torch.from_numpy(v) for key, v in bns[0].items()}
-    s1, b1 = fold_bn(t["scale"], t["bias"], t["mean"], t["var"])
-    t = {key: torch.from_numpy(v) for key, v in bns[1].items()}
-    s2, b2 = fold_bn(t["scale"], t["bias"], t["mean"], t["var"])
-    got = expand_dw_plain(torch.from_numpy(x), torch.from_numpy(w_exp[0, 0]), s1, b1,
-                          torch.from_numpy(w_dw[:, :, 0]), s2, b2).numpy()
-    np.testing.assert_allclose(got, want, **F32_TOL)
+    (m1, mul1, b1), (m2, mul2, b2) = (
+        bn_terms(*(torch.from_numpy(bn[key]) for key in ("scale", "bias", "mean", "var")))
+        for bn in bns)
+    got, squeeze = expand_dw_plain(torch.from_numpy(x), torch.from_numpy(w_exp[0, 0]), m1,
+                                   mul1, b1, torch.from_numpy(w_dw[:, :, 0]), m2, mul2, b2)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(squeeze.numpy(), want.sum(axis=(1, 2)), rtol=1e-5,
+                               atol=1e-5 * np.abs(want).sum(axis=(1, 2)).max())
 
 
-@pytest.mark.parametrize("k,h,w", [(3, 11, 7), (5, 9, 13)])
-def test_plain_bf16_matches_jax_mbconv_front_half(k, h, w):
-    """The bf16 plain version against the JAX MBConvBlock's front half at bf16 as XLA
-    compiles it (jitted): the convolutions' sums unrounded into the BatchNorms, each
-    BatchNorm's result and each op of the SiLU rounded. The folded BatchNorm
-    (`fold_bn`: x s + b where flax computes (x - mean) (scale rsqrt(var + eps)) +
-    bias) rounds the other way where the float32 results straddle a bf16 rounding
-    boundary; measured 100% (k3) and 99.991% (k5) bit-identical."""
+def _bf16_front_half(k, h, w, se_mean=False):
+    """The bf16 plain version and JAX's bf16 MBConvBlock front half (expand -> bn0
+    -> silu -> depthwise -> bn1 -> silu) on the same inputs from a numpy seed, JAX's
+    side jitted as XLA compiles it for the CPU; with `se_mean`, JAX also returns the
+    SE's mean of the front half's output (`jnp.mean` over H and W, as
+    `layers.SqueezeExcite` takes it) in bf16 and in float32 (the block's tensor cast
+    to float32 first). Returns (port out, port squeeze, JAX outputs)."""
     from flax import linen as nn
 
     cin, cexp = 8, 48
@@ -147,7 +161,11 @@ def test_plain_bf16_matches_jax_mbconv_front_half(k, h, w):
             x = jax.nn.silu(bn("bn0")(x))
             x = nn.Conv(cexp, (k, k), padding="SAME", feature_group_count=cexp, use_bias=False,
                         dtype=jnp.bfloat16, name="depthwise_conv")(x)
-            return jax.nn.silu(bn("bn1")(x))
+            x = jax.nn.silu(bn("bn1")(x))
+            if not se_mean:
+                return x
+            return (x, jnp.mean(x, axis=(1, 2)),
+                    jnp.mean(x.astype(jnp.float32), axis=(1, 2)))
 
     variables = {
         "params": {"expand_conv": {"kernel": w_exp}, "depthwise_conv": {"kernel": w_dw},
@@ -157,15 +175,48 @@ def test_plain_bf16_matches_jax_mbconv_front_half(k, h, w):
                         "bn1": {"mean": bns[1]["mean"], "var": bns[1]["var"]}},
     }
     x_jax = jnp.asarray(x.float().numpy(), jnp.bfloat16)
-    want = np.asarray(jax.jit(Front().apply)(variables, x_jax).astype(jnp.float32))
-    folded = [fold_bn(*(torch.from_numpy(bn[key]) for key in ("scale", "bias", "mean", "var")))
-              for bn in bns]
-    got = expand_dw_plain(x, torch.from_numpy(w_exp[0, 0]).to(torch.bfloat16), *folded[0],
-                          torch.from_numpy(w_dw[:, :, 0]).to(torch.bfloat16), *folded[1])
+    want = jax.jit(Front().apply)(variables, x_jax)
+    terms = [bn_terms(*(torch.from_numpy(bn[key]) for key in ("scale", "bias", "mean", "var")))
+             for bn in bns]
+    got, squeeze = expand_dw_plain(x, torch.from_numpy(w_exp[0, 0]).to(torch.bfloat16),
+                                   *terms[0], torch.from_numpy(w_dw[:, :, 0]).to(torch.bfloat16),
+                                   *terms[1])
+    return got, squeeze, want
+
+
+@pytest.mark.parametrize("k,h,w", [(3, 11, 7), (5, 9, 13)])
+def test_plain_bf16_matches_jax_mbconv_front_half(k, h, w):
+    """The bf16 plain version against the JAX MBConvBlock's front half at bf16 as XLA
+    compiles it (jitted): the convolutions' sums unrounded into the BatchNorms, each
+    BatchNorm ((x - mean) mul + bias, one FMA) and each op of the SiLU rounded.
+    XLA's rsqrt in mul is an estimate (`bn_terms`), so a channel's mul may be one
+    ulp off; measured 100% bit-identical for k3 and k5 (the folded BatchNorm before:
+    100% and 99.991%)."""
+    got, _, want = _bf16_front_half(k, h, w)
     assert got.dtype == torch.bfloat16
-    got = got.float().numpy()
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
     assert (got == want).mean() >= 0.999
     np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("k,h,w", [(3, 29, 48), (5, 17, 13)])
+def test_plain_bf16_squeeze_matches_jax_se_mean(k, h, w):
+    """The plain version's squeeze (the last SiLU's unrounded products summed over H
+    and W in float32) against the SE's mean of JAX's bf16 front half, as XLA
+    computes it: the mean of the products unrounded (its float32 promotion absorbs
+    the SiLU's rounding). In float32, within 1e-6 of the mean |value| (another sum
+    order); times 1 / (H W) and rounded to bf16 as `SqueezeExcite` takes it, >= 99%
+    bit-identical to JAX's bf16 mean (measured 100%), the rest within a bf16 ulp."""
+    got, squeeze, (_, mean_bf16, mean_f32) = _bf16_front_half(k, h, w, se_mean=True)
+    assert squeeze.dtype == torch.float32 and squeeze.shape == (2, 48)
+    n = h * w
+    scale = np.abs(got.float().numpy()).mean(axis=(1, 2))
+    np.testing.assert_allclose(squeeze.numpy() / n, np.asarray(mean_f32), rtol=0,
+                               atol=1e-6 * scale.max())
+    port = (squeeze * (1.0 / n)).to(torch.bfloat16).float().numpy()
+    want = np.asarray(mean_bf16.astype(jnp.float32))
+    assert (port == want).mean() >= 0.99
+    np.testing.assert_allclose(port, want, rtol=2 ** -8, atol=0)
 
 
 def test_fold_bn_matches_jax():
@@ -198,5 +249,5 @@ def test_float64_reference_matches_plain(k, h, w, cin, cexp):
     from _mbconv_f64 import expand_dominant_args, expand_dw_f64, relative_err, within_f64_tol
 
     args = expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, "cpu")
-    got, want = expand_dw_plain(*args).double(), expand_dw_f64(*args)
+    got, want = expand_dw_plain(*args)[0].double(), expand_dw_f64(*args)
     assert within_f64_tol(got, want), relative_err(got, want)
