@@ -12,8 +12,10 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      index outside [0, N) must raise;
   4. kernel 2 (MBConv expand + depthwise) against its plain version at every
      EfficientNet-B5 block shape of the main path: bf16 at the main path's batch,
-     bf16 at unit scale where the expand dominates each output, and fp32, both at
-     batch 2;
+     bf16 at unit scale where the expand dominates each output, bf16 whose BatchNorm
+     outputs reach every branch of the SiLU table (`bf16_wide`), and fp32, the last
+     three at batch 2; first, the card's SiLU table against the CPU's, and the card's
+     sigmoid over all 65536 bf16 values against the entries the kernel reads;
   5. times: each kernel (kernel 1 through its wrapper, as the first version was
      timed, and its launch alone), its plain version and its bound (the least time
      an H100 SXM could take for the same work: 3.35 TB/s, 989 TFLOP/s bf16 tensor,
@@ -293,9 +295,11 @@ def ptxas_summary(log):
 
 
 # label -> a fragment of the mangled name, for every kernel the sources compile
-KERNEL_LABELS = {"mbconv bf16 k3": "expand_dw_bf16_kernelILi3",
+KERNEL_LABELS = {"mbconv bf16 k3": "expand_dw_bf16_kernelILi3ELi2",
+                 "mbconv bf16 k3, three blocks an SM": "expand_dw_bf16_kernelILi3ELi3",
                  "mbconv squeeze tiles": "squeeze_tiles_kernel",
-                 "mbconv bf16 k5": "expand_dw_bf16_kernelILi5",
+                 "mbconv sigmoid (the bf16 SiLU table)": "sigmoid_bf16_kernel",
+                 "mbconv bf16 k5": "expand_dw_bf16_kernelILi5ELi2",
                  "mbconv fp32 k3": "expand_dw_f32_kernelILi3",
                  "mbconv fp32 k5": "expand_dw_f32_kernelILi5",
                  "wpmi slab": "gather_logsum_slab_kernel",
@@ -415,10 +419,13 @@ def mbconv_bound(b, h, w, cin, cexp, k, dtype):
     `fma_bound_ms` goes to the printed lines only, not into the kernels line."""
     import torch
 
+    from mammodissect_torch.ops import kernels
+
     bf16 = dtype == torch.bfloat16
     size = 2 if bf16 else 4
     pix = b * h * w
-    tiles = -(-h // 16) * -(-w // (12 if bf16 else 15))  # the kernel's output tiles
+    # the kernel's tiles of an image (fp32: 16 x 15 outputs; bf16: strips x segments)
+    tiles = kernels.load("mbconv_expand_dw").mbconv_expand_dw_tiles(int(bf16), h, w)
     partials = b * tiles * -(-cexp // 48) * 48  # a squeeze partial a tile and channel
     t_bytes = (pix * (cin + cexp) * size + (cin * cexp + k * k * cexp) * size
                + 6 * cexp * 4 + b * cexp * 4 + 2 * partials * 4) / HBM_BYTES_PER_S * 1e3
@@ -431,7 +438,16 @@ def mbconv_bound(b, h, w, cin, cexp, k, dtype):
     return row
 
 
-def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=False):
+# BatchNorm outputs that fall on the bf16 SiLU table's edges (`bf16_wide`): 2^-8 and
+# the largest bf16 below it (the table's first magnitude), 5.5625 (r = 1 from here
+# up), -87.5 (r flushed to 0 from here down), 128 (its last) and the bf16s beside it,
+# zero, each with both signs
+TABLE_EDGES = [2.0 ** -8, 2.0 ** -8 - 2.0 ** -16, 5.5625, 5.5, 87.5, 87.0, 128.0, 127.5, 129.0,
+               0.0]
+
+
+def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=False,
+                 wide=False):
     """Random inputs of kernel 2. bf16 uses the scales of tests/test_pallas_mbconv.py
     (x 0.1, weights 0.05), where its 2e-3/2e-2 tolerance was set: at unit scale a
     one-ulp difference in the bf16-rounded expanded tensor (the two versions sum the
@@ -440,7 +456,12 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=Fal
     expand_dominant (bf16): x and the expand at unit scale, depthwise weights ~1/K^2
     and no BN2 bias, so each output is about the mean of its window's expanded values
     and any fault of the expand (a dropped channel chunk, a wrong tail tile) moves it
-    far: the kernel's bf16 output must equal the plain version's bit for bit."""
+    far: the kernel's bf16 output must equal the plain version's bit for bit.
+
+    wide (bf16): both BatchNorms' mul drawn as +-2^u, u uniform in [-10, 8], so their
+    outputs run from below 2^-8 to past 128 in magnitude, both signs: every branch of
+    the SiLU table; the first channels take mul 0 and a bias on the table's edges
+    (`TABLE_EDGES`, both signs), which the BatchNorm then gives exactly."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -454,6 +475,21 @@ def _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed, expand_dominant=Fal
 
     # (x, w_exp, BN1 mean, mul, bias, w_dw, BN2 mean, mul, bias); the means are drawn
     # last, so the other draws are those of the folded interface's inputs
+    if wide:
+        def wide_mul(n):
+            sign = torch.where(torch.rand((n,), generator=g) < 0.5, -1.0, 1.0)
+            return sign * 2.0 ** (torch.rand((n,), generator=g) * 18 - 10)
+
+        edges = torch.tensor(TABLE_EDGES + [-e for e in TABLE_EDGES])
+        terms = []
+        for _ in range(2):
+            mul, bias = wide_mul(cexp), torch.randn((cexp,), generator=g) * 0.1
+            mul[:len(edges)], bias[:len(edges)] = 0.0, edges
+            terms.append((mul.to(device), bias.to(device)))
+        x, w_exp = rnd(b, h, w, cin).to(dtype), rnd(cin, cexp, scale=cin ** -0.5).to(dtype)
+        w_dw = ((1.0 + rnd(k, k, cexp, scale=0.1)) / (k * k)).to(dtype)
+        (mul1, bias1), (mul2, bias2) = terms
+        return x, w_exp, rnd(cexp, scale=0.1), mul1, bias1, w_dw, rnd(cexp, scale=0.1), mul2, bias2
     if expand_dominant:
         x, w_exp = rnd(b, h, w, cin).to(dtype), rnd(cin, cexp, scale=cin ** -0.5).to(dtype)
         mul1, bias1 = pos(cexp), rnd(cexp, scale=0.1)
@@ -477,8 +513,53 @@ SQUEEZE_BF16_RTOL = 1e-5
 def squeeze_err(got, want, out, atol, rtol):
     """The largest |squeeze - plain squeeze| over its bound atol H W + rtol sum |out|
     (out: the plain version's [B, H, W, Cexp]): at most 1 to pass."""
+    import torch
+
     bound = atol * out.shape[1] * out.shape[2] + rtol * out.float().abs().sum(dim=(1, 2))
-    return float(((got - want).abs() / bound).max())
+    err = (got - want).abs()
+    # a channel whose every value is 0 (bf16_wide's edge at 0) has a bound of 0: there
+    # the error must be 0 too
+    return float(torch.where(bound > 0, err / bound, torch.where(err > 0, float("inf"), 0.0)).max())
+
+
+def silu_table_check(device):
+    """Kernel 2's bf16 SiLU table and its builder `sigmoid_bf16_kernel` held bit for bit
+    to their plain version on the card, the op chain (`ops.activations._sigmoid_chain`)
+    that phase 5's plain version computes: the table against the chain over its 3844
+    inputs, and over all 65536 bf16 values the card's sigmoid and the table entry the
+    kernel reads in its place (`silu_table_index`: the magnitude clamped to the table's
+    range, whose ends hold the constants) against the chain; Inf and NaN take the chain
+    in the kernel. Also prints the entries that differ from the table built on the CPU
+    (`ops.cuda_mbconv.silu_table`; 0 expected, not gated)."""
+    import torch
+
+    from mammodissect_torch.ops.activations import _sigmoid_chain
+    from mammodissect_torch.ops.cuda_mbconv import (
+        sigmoid_bf16, silu_table, silu_table_index, silu_table_inputs)
+
+    def bits(t):
+        return t.view(torch.int16).cpu()
+
+    table = silu_table(device)
+    plain = _sigmoid_chain(silu_table_inputs(device))
+    codes = torch.arange(65536, dtype=torch.int32)
+    a = torch.where(codes >= 0x8000, codes - 0x10000, codes).to(torch.int16).view(torch.bfloat16)
+    finite = (codes & 0x7FFF) < 0x7F80
+    chain = bits(_sigmoid_chain(a.to(device)))
+    card_sigmoid = bits(sigmoid_bf16(a.to(device)))
+    row = {"table_entries_differing": int((bits(table) != bits(plain)).sum()),
+           "sigmoid_values_differing": int((card_sigmoid != chain)[finite].sum()),
+           "table_reads_differing": int((bits(table)[silu_table_index(a)] != chain)[finite].sum()),
+           "cpu_table_entries_differing": int((bits(table) != bits(silu_table("cpu"))).sum())}
+    say(f"[kernel 2] SiLU table against the op chain on the card: "
+        f"{row['table_entries_differing']} of {table.numel()} entries differ; the card's "
+        f"sigmoid differs at {row['sigmoid_values_differing']} of {int(finite.sum())} finite "
+        f"bf16 values, the table entry the kernel reads at {row['table_reads_differing']}; "
+        f"{row['cpu_table_entries_differing']} entries differ from the table built on the CPU")
+    check(row["table_entries_differing"] == row["sigmoid_values_differing"]
+          == row["table_reads_differing"] == 0,
+          f"the SiLU table or its sigmoid kernel disagrees with the op chain on the card: {row}")
+    return row
 
 
 def phase_mbconv(device):
@@ -492,9 +573,10 @@ def phase_mbconv(device):
         for name, dtype, b, (atol, rtol) in (
                 ("bf16", torch.bfloat16, MAIN_BATCH, (0.0, 0.0)),
                 ("bf16_unit", torch.bfloat16, 2, (0.0, 0.0)),
+                ("bf16_wide", torch.bfloat16, 2, (0.0, 0.0)),
                 ("fp32", torch.float32, 2, (1e-4, 1e-4))):
             args = _mbconv_args(b, h, w, cin, cexp, k, dtype, device, seed=10 + i,
-                                expand_dominant=name == "bf16_unit")
+                                expand_dominant=name == "bf16_unit", wide=name == "bf16_wide")
             got, squeeze = fused_expand_dw(*args)
             want, want_squeeze = expand_dw_plain(*args)
             again, squeeze_again = fused_expand_dw(*args)
@@ -528,6 +610,8 @@ def phase_mbconv(device):
             f"fp32 B=2: {row['max_abs_err_fp32']:.3g}; squeeze (share of its bound, max abs "
             f"err) bf16 {row['squeeze_err_bf16']:.3g}, {row['squeeze_max_abs_err_bf16']:.3g}, "
             f"unit {row['squeeze_err_bf16_unit']:.3g}, {row['squeeze_max_abs_err_bf16_unit']:.3g}, "
+            f"wide {row['squeeze_err_bf16_wide']:.3g}, {row['squeeze_max_abs_err_bf16_wide']:.3g} "
+            f"(bf16 wide B=2 max abs err {row['max_abs_err_bf16_wide']:.3g}), "
             f"fp32 {row['squeeze_err_fp32']:.3g}, {row['squeeze_max_abs_err_fp32']:.3g}; two "
             f"launches identical; {row['ms']:.4f} ms (first version "
             f"{first_ms:.3f} ms), plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
@@ -2616,6 +2700,7 @@ def main():
     card = phase_card()
     build_s = phase_build()
     wpmi = phase_wpmi(MAIN_N, device)
+    silu_table = silu_table_check(device)
     mbconv = phase_mbconv(device)
     say("[library] library_ms n/a for both kernels: no single PyTorch call computes "
         "either fused function")
@@ -2706,7 +2791,10 @@ def main():
          "max_abs_err": max(r["max_abs_err_bf16"] for r in mbconv),
          # the squeeze: the largest share of its bound, and |error|, over the shapes
          "squeeze_err": max(r[f"squeeze_err_{n}"] for r in mbconv
-                            for n in ("bf16", "bf16_unit", "fp32")),
+                            for n in ("bf16", "bf16_unit", "bf16_wide", "fp32")),
+         # the bf16 SiLU table and its sigmoid kernel against the op chain on the card,
+         # and the table against the CPU's (phase 5)
+         **silu_table,
          "squeeze_max_abs_err_bf16": max(r["squeeze_max_abs_err_bf16"] for r in mbconv),
          # one forward's 32 launches at the main path's batch
          "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),

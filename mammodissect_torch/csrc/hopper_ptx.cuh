@@ -1,7 +1,9 @@
 // Inline PTX for the kernels under csrc/: asynchronous global->shared copies
-// (cp.async), shared-memory matrix loads (ldmatrix), the bf16 and tf32 tensor-core
-// products (mma.sync m16n8k16, m16n8k8) and the fp32 -> tf32 rounding, for sm_80
-// and later, used here on sm_90a.
+// (cp.async), shared-memory matrix loads (ldmatrix), the tf32 tensor-core product
+// (mma.sync m16n8k8) and the fp32 -> tf32 rounding, for sm_80 and later; Hopper's
+// tensor copies (TMA, cp.async.bulk.tensor), the shared-memory barriers (mbarrier)
+// that count their bytes, and the warpgroup product (wgmma, sm_90a). Used here on
+// sm_90a.
 #pragma once
 
 #include <cstdint>
@@ -38,23 +40,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// The same, each matrix transposed on the way into the registers.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d[16x8] += a[16x16] (row-major bf16) * b[16x8] (column-major bf16), fp32 sums.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // fp32 -> tf32 (10-bit mantissa), rounded to nearest with ties away from zero; the
 // low 13 bits of the result are zero.
 __device__ __forceinline__ uint32_t cvt_tf32(float v) {
@@ -87,6 +72,86 @@ __device__ __forceinline__ void mma_tf32_1688_zero(float (&d)[4], const uint32_t
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// A shared-memory barrier of `count` arrivals a phase; then a fence, so that the
+// tensor copies see it initialised.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A 4-d box of the tensor described by `tmap` (a __grid_constant__ CUtensorMap) at
+// coordinates (c0, c1, c2, c3), innermost first, into shared memory at dst; elements
+// outside the tensor arrive as zeros. Completes its bytes on the barrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the async proxy's
+// reads of it (wgmma's operands, written by ordinary stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major bf16 tile in TMA's 128-byte swizzle:
+// rows of 128 bytes (64 values along K), eight rows a 1024-byte atom (the stride
+// between atoms, SBO), the tile on a 1024-byte boundary; a k16 step further along K
+// starts 32 bytes later.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving a register's reads or writes across the wgmma
+// instructions that own it.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d[64 x 24] += a[64 x 16] * b[16 x 24], bf16 in, fp32 sums, both operands K-major in
+// shared memory; a warpgroup's instruction. Each warp holds 16 rows of d as three
+// m16n8 fragments (d[4 j .. 4 j + 3]: columns 8 j on), the layout of mma.sync's.
+__device__ __forceinline__ void wgmma_m64n24k16_bf16(float (&d)[12], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 }  // namespace hopper

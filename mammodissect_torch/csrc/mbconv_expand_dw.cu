@@ -14,7 +14,7 @@
 // tails, no 128-lane padding), bf16 and fp32.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 and 495 TFLOP/s tf32 on the
-// tensor cores, 67 TFLOP/s fp32 outside them), per call: bytes
+// tensor cores, 67 TFLOP/s fp32 outside them), per call, the larger of: bytes
 // B*H*W*(Cin+Cexp)*sizeof(T); expand 2*B*H*W*Cin*Cexp FLOPs (tensor cores);
 // depthwise 2*K*K*B*H*W*Cexp FLOPs (fp32 FMAs). The expanded tensor (Cexp/Cin = 6
 // times the input) never goes to device memory. At B5 widths the expand is ~95% of
@@ -29,52 +29,77 @@
 // back. In bf16 the summed value is the SiLU's last product a * r in fp32, before the
 // store rounds it (XLA's program of the JAX block averages that product unrounded:
 // its mean promotes to fp32); in fp32 it is the value written. The order is fixed,
-// with no float atomics, so two launches give the same bits: each depthwise item
-// (a row segment of one or two channels) sums its outputs inside the image in column
-// order in registers and leaves the sum in shared memory; after the block's barrier
-// one thread a channel adds the items in row-then-segment order and writes the
-// tile's partial to partials [B, tiles, Cexp rounded up to 48] (f32 scratch from the
-// caller; every B5 and V2-S width is a multiple of 48); a second
-// kernel (`squeeze_tiles_kernel`) then adds each (image, channel)'s partials in tile
-// order. At block 4's 380 x 228 x 240, batch 16, the scratch is 16 x 456 x 240 x 4 =
-// 7 MB (bf16 tiles), where a separate mean moves 10 bytes a value (the bf16 output
-// read, an f32 copy written and read back): 3.3 GB there.
+// with no float atomics, so two launches give the same bits: each depthwise item sums
+// its outputs in registers in a fixed order; after the block's barrier one thread a
+// channel adds the items in order and writes the block's partial to partials [B,
+// tiles, Cexp rounded up to 48] (f32 scratch from the caller; every B5 and V2-S width
+// is a multiple of 48); a second kernel (`squeeze_tiles_kernel`) then adds each
+// (image, channel)'s partials in tile order. A tile is a 16 x 15 output tile in fp32
+// and a strip x segment in bf16: at block 4's 380 x 228 x 240, batch 16, the bf16
+// scratch is 16 x 48 x 240 x 4 = 0.7 MB, where a separate mean moves 10 bytes a value
+// (the bf16 output read, an f32 copy written and read back): 3.3 GB there.
 //
-// bf16 design. The TPU kernel keeps a (t+4) x (W+4) x Cin input slab in VMEM, ~1.4
-// MB at block 4 and far over the 227 KB of shared memory a block may use. A block
-// here owns one image, a 16 x 12 output tile and 48 expanded channels (every B5
-// width is a multiple of 48, so no channel tile is ragged there):
-//   expand: a GEMM with M = the (16+K-1) x (12+K-1) halo positions, N = 48, K =
-//     Cin, on mma.sync m16n8k16 (bf16 in, fp32 sums in registers). Each of the 8
-//     warps owns every 8th group of 16 positions and all 6 n8 tiles. Operands come
-//     from shared memory by ldmatrix (B transposed from the row-major [Cin, Cexp]
-//     weight). Input rows and weights arrive as 16-byte cp.async copies, 32 input
-//     channels a stage, two stages, so the next chunk is in flight during the
-//     products; out-of-image positions and channel tails are zero-filled (src-size
-//     0), and a chunk runs only the k16 steps it has (Cin = 40 costs 48, not 64).
-//     Rows are padded by 16 bytes, so ldmatrix is free of bank conflicts.
-//   epilogue: BN1 on the fp32 sums (`bn_bf16`, as flax's BatchNorm: (v - mean) * mul +
-//     bias, the subtraction rounded, the product and the sum one FMA, as XLA's CPU
-//     program computes it), rounded to bf16, then the SiLU as the JAX
-//     package's bf16 program computes it (`silu_bf16`), zeros at out-of-image halo
-//     positions (the depthwise must see SAME zeros, not silu(bn1 bias) of a zero
-//     input), into shared memory as bf16 (over the stages, which are done).
-//   depthwise: two channels a thread (bf16x2), a register window sliding along 6
-//     output columns (each input read once per output row), K*K weights in
-//     registers, fp32 sums, BN2 (`bn_bf16`) rounded to bf16, `silu_bf16`; the output tile is
-//     staged in shared memory and stored as 16-byte vectors. Each item's two squeeze
-//     sums stay in registers, then go to a static 32 x 48 f32 array (6 KB).
+// bf16 design. Its bound (above) is 2.5 ms a B5 forward at batch 16. What holds it
+// back is the work past the products and its latency: each output takes the JAX
+// program's bf16 SiLU twice (`silu_bf16`: the accurate expf, three bf16 roundings,
+// the IEEE reciprocal, a flush; ~8.7 G evaluations a forward in 16 x 12 tiles), two
+// BatchNorms, their roundings and the depthwise's K*K fp32 FMAs, in short phases
+// between barriers, on top of the halo recompute of small tiles and the staging
+// around every tile. No single unit binds: leaving out the SiLUs, the depthwise's
+// FMAs or the products each saved under a fifth of the time (PERF.md). The design:
+//   the SiLU from a table: r of a bf16 input is a function of 65536 values, constant
+//     outside |a| in [2^-8, 2^7); the 2 x 1922 values from the largest bf16 below
+//     2^-8 to 2^7 are built once a device by the kernel's own chain (`sigmoid_bf16`)
+//     and held in shared memory (7.5 KB), so a SiLU is a clamp of the magnitude, one
+//     shared-memory load and one __fmul_rn, with the chain's bits (Inf and NaN take
+//     the chain itself; `silu_tab`). It trades ALU work for shared-memory traffic
+//     (a random 2-byte gather, ~3-4 bank conflicts a warp).
+//   each expanded row once: a block owns one image, one strip of output columns (the
+//     whole width up to 64, else strips of at most 60), a segment of at most 32 output
+//     rows and 48 expanded channels. It walks down the segment: each step expands the
+//     next rs input rows (64 positions: the window's in-image columns rounded up to
+//     m16 tiles, so W = 29 takes two rows a step) into a ring of K - 1 + rs expanded
+//     rows in shared memory, then runs the depthwise for the output rows the ring
+//     completes. Columns outside the image are zeros written once (SAME zeros for the
+//     depthwise); rows outside it are written as zeros. The expand's recompute (its
+//     epilogue's SiLUs over the outputs') falls from 1.33-2.07 (16 x 12 tiles) to
+//     the strips' 2 x PAD columns and the segments' K - 1 rows, 1.06-1.17 at the B5
+//     shapes (3.8 G SiLUs a forward at batch 16, from 5.3 G); the segments keep >=
+//     2.9 waves of two blocks an SM at every B5 shape (block counts in PERF.md).
+//   resident operands: the expand weights (48 KB at Cin 512), the depthwise weights,
+//     the BatchNorms and the table stay in shared memory for the block's life, loaded
+//     once, not re-staged per 16 x 12 tile. The expand weights are stored transposed,
+//     K-major in wgmma's 128-byte swizzle: per 64 input channels, 48 rows of 128 bytes.
+//   inputs by TMA: thread 0 keeps SLOTS chunks (rs x 64 positions x 64 input channels,
+//     128 bytes a position) in flight, each a 4-d TMA box of x in the 128-byte
+//     swizzle wgmma reads, with zeros outside the image and past
+//     Cin, completing on an mbarrier the warps wait on; the slot is refilled after the
+//     block's barrier. No dedicated producer warp: one thread's few instructions a
+//     chunk. Cin not a multiple of 8 or an unaligned x (TMA refuses the strides) stage
+//     the same layout element by element.
+//   expand: wgmma m64n24k16 (bf16 in, fp32 sums), both operands read from shared
+//     memory by descriptor: the input chunk as TMA laid it out, the weights K-major;
+//     each of the two warpgroups computes 24 of the 48 channels for the step's 64
+//     positions, over the k16 steps in order from zero into one sum. Those are the
+//     bits of the plain version's torch.mm(..., out_dtype=float32) on the card (cuBLAS'
+//     own sm90 kernels; measured at every B5 and V2-S shape, as mma.sync's were).
+//     Each warp's 16 rows arrive in mma.sync's fragment layout, so the epilogue is
+//     one m16 tile a warp. Against mma.sync m16n8k16 with ldmatrix operands it reads
+//     each weight once a warpgroup instead of once a warp, frees the registers of the
+//     fragments, and overlaps the products with the waits.
+//   epilogue: BN1 (`bn_bf16`: (v - mean) * mul + bias, the subtraction rounded, then
+//     one FMA, as XLA's CPU program of flax's BatchNorm) rounded to bf16, the SiLU,
+//     bf16 into the ring.
+//   depthwise: an item is a channel pair, a row of the step and 6 output columns
+//     (~1 item a thread); its sums run over dy, then dx, from zero (the plain version's
+//     order), a window of K columns sliding along each ring row; BN2 rounded, the
+//     SiLU, stored as bf16x2 (a warp writes 96 contiguous bytes). Its squeeze sums a
+//     row's outputs, then the rows, in registers for the walk.
 //   The roundings are the ones XLA's CPU program of the JAX MBConv block makes at
-//   bf16: the convolutions' fp32 sums enter the BatchNorms unrounded (the
-//   BatchNorm promotes them to fp32, which absorbs their rounding), each
+//   bf16: the convolutions' fp32 sums enter the BatchNorms unrounded, each
 //   BatchNorm's result is rounded, and so is each op of the SiLU.
-// Halo recompute is 18*14/192 = 1.31 of the expand for K = 3, 20*16/192 = 1.67 for
-// K = 5. The tile is 16 x 12 rather than 16 x 16 so that the sums, the epilogue
-// and the depthwise fit 128 registers: two blocks an SM, so that one block's copies
-// and barriers overlap another's math; and 228 = 19 x 12 columns at blocks 4-7.
-// Past the MMAs the work is ~2.3 SiLUs (SFU) and K*K fp32 FMAs per output.
-// Widths that are not multiples of 8, or unaligned pointers, stage and store
-// element by element instead of the 16-byte paths.
+//   Three blocks an SM at K = 3 where their shared memory fits (blocks 4-7 and 14-19
+//   of B5: 80 registers), else two; 256 threads a block.
 //
 // fp32 design: 3xTF32 on the tensor cores. The tensor cores take fp32 only as tf32
 // (a 10-bit mantissa, ~3 decimal digits), which the port's float32 policy (TF32 off,
@@ -113,8 +138,8 @@
 //     space (9 KB; a static array would cost the second block an SM).
 //   Both BatchNorms are folded as the block loads them: scale mul, shift bias - mean
 //   * mul (fp32 keeps the fold: no rounding to match, and fewer live values).
-// 16 x 15 rather than the bf16 16 x 12: 29 columns (the 48 x 29 deep blocks) split
-// into 2 tiles of 15 instead of 3 of 12, whose last is 5 wide; the halo recompute is
+// 16 x 15 rather than 16 x 12 (the bf16 path's earlier tile): 29 columns (the 48 x 29
+// deep blocks) split into 2 tiles of 15 instead of 3 of 12, whose last is 5 wide; the halo recompute is
 // 20*16/240 = 1.33 (K = 3) and 24*16/240 = 1.6 (K = 5) with the m16 padding. The
 // shared memory (3 stages of 29-34 KB, or the 68-85 KB expanded tile) and 128
 // registers a thread allow two blocks an SM (8 x 15 tiles at three blocks an SM
@@ -122,10 +147,13 @@
 // 304->1824 k5 and 512->3072 k3).
 // Widths that are not multiples of 4, or unaligned pointers, stage element by
 // element instead of the 16-byte copies.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 #include "hopper_ptx.cuh"
 
@@ -155,10 +183,43 @@ __device__ __forceinline__ float bn_bf16(float v, float mean, float mul, float b
 // XLA's do), a subnormal reciprocal flushed to zero as XLA's CPU backend flushes it;
 // returns the product a * r rounded to fp32 (an explicit multiply: contracted into
 // the squeeze's sum, it would sum exact products), which the caller's bf16 store rounds.
-__device__ __forceinline__ float silu_bf16(float a) {
+__device__ __forceinline__ float sigmoid_bf16(float a) {
   const float d = bf16_round(1.0f + bf16_round(expf(-a)));
   const float r = bf16_round(__frcp_rn(d));
-  return __fmul_rn(a, r < 1.17549435e-38f ? 0.0f : r);
+  return r < 1.17549435e-38f ? 0.0f : r;
+}
+
+__device__ __forceinline__ float silu_bf16(float a) { return __fmul_rn(a, sigmoid_bf16(a)); }
+
+// The sigmoid r of `sigmoid_bf16` takes a bf16 input, so it is a function of 65536
+// values, and outside |a| in [2^-8, 2^7) it is a constant: 0.5 below (and at zero),
+// 1 from 2^7 up for a > 0 and 0 for a < 0. The table holds r (bf16 bits) for the
+// 1922 magnitudes from the largest bf16 below 2^-8 to 2^7, each sign, built once a
+// device by `sigmoid_bf16` itself (`mbconv_sigmoid_bf16`), so a SiLU read from it has
+// the chain's bits; the magnitude clamped to that range finds every finite input's
+// entry, the constants included. Index: the sign times TAB_SPAN, plus the clamped
+// bf16 magnitude bits less TAB_LO.
+constexpr uint32_t TAB_LO = (119u << 7) - 1;  // the largest bf16 magnitude below 2^-8
+constexpr uint32_t TAB_HI = 134u << 7;        // 2^7: biased exponent 134
+constexpr uint32_t TAB_SPAN = TAB_HI - TAB_LO + 1;
+constexpr int TAB_ENTRIES = 2 * TAB_SPAN;
+constexpr int TAB_BYTES = (TAB_ENTRIES * 2 + 15) / 16 * 16;  // its shared memory
+
+// silu_bf16(a) for a bf16 value a (held in fp32) with r read from the table in
+// shared memory: a clamp, a load and a multiply. Inf and NaN take the chain itself.
+__device__ __forceinline__ float silu_tab(float a, const uint16_t* tab) {
+  const uint32_t bits = __float_as_uint(a) >> 16, mag = bits & 0x7fffu;
+  if (mag >= 0x7f80u) return silu_bf16(a);
+  const uint32_t i = min(max(mag, TAB_LO), TAB_HI) - TAB_LO + (bits >> 15) * TAB_SPAN;
+  return __fmul_rn(a, __uint_as_float(static_cast<uint32_t>(tab[i]) << 16));
+}
+
+// r = sigmoid_bf16(a) for n bf16 values a: what builds the table (and, over all 65536
+// values, the check of its constants in chip_smoke.py).
+__global__ void sigmoid_bf16_kernel(const uint16_t* __restrict__ a, uint16_t* __restrict__ r,
+                                    int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) r[i] = __float_as_uint(sigmoid_bf16(__uint_as_float(static_cast<uint32_t>(a[i]) << 16))) >> 16;
 }
 
 // The two BatchNorms' vectors [Cexp] f32, passed by value: mean, mul, bias of BN1,
@@ -196,54 +257,111 @@ constexpr int CHANNEL_TILE = 48;  // expanded channels a block, both paths
 // ---------------------------------------------------------------- bf16, tensor cores
 namespace tc {
 
-constexpr int TH = 16;            // output rows per block
-constexpr int TW = 12;            // output columns per block
-constexpr int SEG = TW / 2;       // output columns of one depthwise window
 constexpr int CT = CHANNEL_TILE;  // expanded channels per block
-constexpr int NT = CT / 8;        // n8 tiles of the expand
-constexpr int KC = 32;            // input channels per stage (two k16 steps)
-constexpr int STAGES = 2;
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int XS = KC + 8;        // input row stride (bf16): 80 bytes
-constexpr int WS = CT + 8;        // weight row stride: 112 bytes
-constexpr int ES = CT + 8;        // expanded / output tile row stride: 112 bytes
+constexpr int KCH = 64;           // input channels of a chunk: 128 bytes a position
+constexpr int MROWS = 64;         // positions of a step: four m16 tiles
+constexpr int SLOTS = 3;          // input chunks in the ring
+constexpr int SLOT_BYTES = MROWS * KCH * 2;
+constexpr int W_CHUNK = CT * 128;  // resident weights of a chunk: 48 rows of 64 K values
+constexpr int ES = CT + 8;        // expanded row stride: 112 bytes
+constexpr int PAIRS = CT / 2;     // channel pairs of a depthwise item
+constexpr int SEG = 6;            // output columns of a depthwise item
+constexpr int IPT = 2;            // depthwise items a thread, at most
+constexpr int STRIP = 60;         // widest strip of a wide image (W > MROWS)
+constexpr int SEG_ROWS = 32;      // tallest H segment
 
-template <int K>
-struct Geometry {
-  static constexpr int WP = TW + K - 1;
-  static constexpr int NP = (TH + K - 1) * WP;      // halo positions
-  static constexpr int MT = (NP + 15) / 16;         // m16 tiles of the expand
-  static constexpr int MPW = (MT + WARPS - 1) / WARPS;
-  static constexpr int ROWS = MT * 16;
-  static constexpr int STAGE = ROWS * XS + KC * WS;  // bf16 elements
-  static constexpr int SMEM_A = STAGES * STAGE * 2;
-  static constexpr int SMEM_B = (NP + TH * TW) * ES * 2;
-  static constexpr int SMEM = SMEM_A > SMEM_B ? SMEM_A : SMEM_B;
+// How a launch cuts an image: n_s column strips of sw (the last may be narrower),
+// n_seg row segments of sh; ncp: the in-image columns a step expands, rounded up to
+// m16 tiles; rs: rows a step (64 positions). A function of H and W alone (so is the
+// partials' count), and of K only through ncp.
+struct Geo {
+  int n_s, sw, n_seg, sh, ncp, rs;
 };
 
-template <int K>
-__global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: one's copies, another's math
-expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp,
-                      Bn bn, const bf16* __restrict__ w_dw, bf16* __restrict__ out,
-                      float* __restrict__ partials, int H, int W, int cin, int cexp, int tiles_w,
-                      int vec) {
-  using G = Geometry<K>;
+inline Geo geometry(int H, int W, int K) {
+  Geo g;
+  g.n_s = W <= MROWS ? 1 : (W + STRIP - 1) / STRIP;
+  g.sw = (W + g.n_s - 1) / g.n_s;
+  g.n_seg = (H + SEG_ROWS - 1) / SEG_ROWS;
+  g.sh = (H + g.n_seg - 1) / g.n_seg;
+  const int nc = g.n_s == 1 ? W : std::min(W, g.sw + K - 1);
+  g.ncp = (nc + 15) / 16 * 16;
+  g.rs = MROWS / g.ncp;
+  return g;
+}
+
+// MINB: blocks an SM the registers must allow (3 where the shared memory does, at K = 3)
+template <int K, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+expand_dw_bf16_kernel(const __grid_constant__ CUtensorMap tmap, const bf16* __restrict__ x,
+                      const bf16* __restrict__ w_exp, Bn bn, const bf16* __restrict__ w_dw,
+                      bf16* __restrict__ out, float* __restrict__ partials,
+                      const uint16_t* __restrict__ table, int H, int W, int cin, int cexp,
+                      int sw, int sh, int n_s, int ncp, int rs, int tma, int wvec, int ovec) {
   constexpr int PAD = (K - 1) / 2;
-  constexpr int SEGS_W = TW / SEG;                   // depthwise items along a row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_bn[6][CT];                      // mean, mul, bias of BN1, then BN2
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float s_bn[6][CT];  // mean, mul, bias of BN1, then BN2
   __shared__ __align__(8) float s_wdw[K * K][CT];
-  __shared__ __align__(8) float s_sq[TH * SEGS_W][CT];  // the depthwise items' squeeze sums
-  bf16* const sm = reinterpret_cast<bf16*>(smem);
+  __shared__ __align__(8) uint64_t s_bar[SLOTS];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * CT;
-  const int y0 = (blockIdx.y / tiles_w) * TH;
-  const int x0 = (blockIdx.y % tiles_w) * TW;
+  const int x0 = (blockIdx.y % n_s) * sw, y0 = (blockIdx.y / n_s) * sh;
   const int64_t img = blockIdx.z;
-  const bf16* const ximg = x + img * H * W * cin;
+  float* const part =
+      partials + ((img * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * CT;
+  if (x0 >= W || y0 >= H) {  // an empty strip or segment (not at B5 shapes)
+    if (tid < CT) part[tid] = 0.0f;
+    return;
+  }
+  const int swt = min(sw, W - x0), sht = min(sh, H - y0);
+  const int wp = sw + K - 1;     // expanded row columns: x0 - PAD + j
+  const int wr = wp + SEG;       // a ring row, with zeros past wp for the last window
+  const int R = K - 1 + rs;      // expanded rows in the ring
+  const int xs = max(0, x0 - PAD);  // the first in-image column of the window
+  const int nc = min(W, x0 + swt + PAD) - xs;  // in-image columns the expand computes
+  const int mts = rs * ncp / 16;  // m16 tiles of a step
+  const int nch = max(1, (cin + KCH - 1) / KCH);  // one barrier a chunk, also at Cin 0
+  const int nsteps = (sht + K - 1 + rs - 1) / rs;
+  const int total = nsteps * nch;
+  const int nseg = (swt + SEG - 1) / SEG;
+  const int items = rs * nseg * PAIRS;
+  const int ybase = y0 - PAD;    // the image row of the walk's row 0
 
+  // dynamic shared memory from a 1024-byte boundary (the 128-byte swizzle of TMA and
+  // wgmma): the input ring, the resident weights, the SiLU table, the expanded rows
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  unsigned char* const in_ring = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
+  unsigned char* const s_w = in_ring + SLOTS * SLOT_BYTES;  // [nch][CT][64] K-major, swizzled
+  uint16_t* const s_tab = reinterpret_cast<uint16_t*>(s_w + nch * W_CHUNK);
+  bf16* const ring = reinterpret_cast<bf16*>(s_w + nch * W_CHUNK + TAB_BYTES);  // [R][wr][ES]
+  const uint32_t in_addr = hopper::smem_addr(in_ring);
+
+  // chunk i of the walk (step i / nch, input channels (i % nch) * KCH on) into slot
+  // i % SLOTS: one thread's TMA box (KCH channels, ncp columns from xs, rs rows,
+  // one image), zeros outside the image and past Cin
+  auto fetch = [&](int i) {
+    const int s = i / nch, slot = i % SLOTS;
+    const uint32_t bar = hopper::smem_addr(&s_bar[slot]);
+    hopper::mbar_arrive_expect_tx(bar, rs * ncp * KCH * 2);
+    hopper::tma_load_4d(in_addr + slot * SLOT_BYTES, &tmap, bar, (i - s * nch) * KCH, xs,
+                        ybase + s * rs, static_cast<int>(img));
+  };
+  if (tma && tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) hopper::mbar_init(hopper::smem_addr(&s_bar[s]), 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tma && tid == 0)
+    for (int i = 0; i < SLOTS && i < total; ++i) fetch(i);
+
+  // resident for the block's life: the table, the BatchNorms, the depthwise and the
+  // expand weights (zeros past Cin and Cexp); the ring starts at zero,
+  // which stays in the columns outside the image (SAME zeros for the depthwise)
+  for (int i = tid; i < TAB_ENTRIES / 4; i += THREADS)
+    reinterpret_cast<uint2*>(s_tab)[i] = reinterpret_cast<const uint2*>(table)[i];
   for (int i = tid; i < 6 * CT; i += THREADS) {
     const int r = i / CT, c = c0 + i % CT;
     s_bn[r][i % CT] = c < cexp ? bn.at(r)[c] : 0.0f;
@@ -252,232 +370,302 @@ expand_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_exp
     const int t = i / CT, c = c0 + i % CT;
     s_wdw[t][i % CT] = c < cexp ? __bfloat162float(w_dw[(int64_t)t * cexp + c]) : 0.0f;
   }
-  __syncthreads();
-
-  // one stage: the halo rows' KC input channels and the KC x CT weight block. The
-  // loops stay rolled: unrolled, their addresses spill registers of the sums
-  auto load_stage = [&](int s, int ci0) {
-    bf16* const xs = sm + s * G::STAGE;
-    bf16* const ws = xs + G::ROWS * XS;
-    if (vec) {
-#pragma unroll 1
-      for (int i = tid; i < G::NP * (KC / 8); i += THREADS) {
-        const int p = i / (KC / 8), seg = i % (KC / 8);
-        const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP, ci = ci0 + seg * 8;
-        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci < cin;
-        const bf16* src = ok ? ximg + ((int64_t)gy * W + gx) * cin + ci : x;
-        hopper::cp_async16(hopper::smem_addr(xs + p * XS + seg * 8), src, ok ? 16 : 0);
-      }
-#pragma unroll 1
-      for (int i = tid; i < KC * (CT / 8); i += THREADS) {
-        const int r = i / (CT / 8), seg = i % (CT / 8);
-        const int ci = ci0 + r, c = c0 + seg * 8;
-        const bool ok = ci < cin && c < cexp;
-        const bf16* src = ok ? w_exp + (int64_t)ci * cexp + c : w_exp;
-        hopper::cp_async16(hopper::smem_addr(ws + r * WS + seg * 8), src, ok ? 16 : 0);
-      }
-    } else {
-      const bf16 zero = __float2bfloat16(0.0f);
-#pragma unroll 1
-      for (int i = tid; i < G::NP * KC; i += THREADS) {
-        const int p = i / KC, ci = ci0 + i % KC;
-        const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP;
-        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci < cin;
-        xs[p * XS + i % KC] = ok ? ximg[((int64_t)gy * W + gx) * cin + ci] : zero;
-      }
-#pragma unroll 1
-      for (int i = tid; i < KC * CT; i += THREADS) {
-        const int ci = ci0 + i / CT, c = c0 + i % CT;
-        ws[(i / CT) * WS + i % CT] =
-            ci < cin && c < cexp ? w_exp[(int64_t)ci * cexp + c] : zero;
-      }
-    }
+  // the expand weights transposed to wgmma's K-major B: input channel k of expanded
+  // channel n at chunk k / 64, row n, 16-byte column (k % 64) / 8 ^ (n % 8)
+  auto put_w = [&](int k, int n, bf16 v) {
+    *reinterpret_cast<bf16*>(s_w + (k / KCH) * W_CHUNK + n * 128 +
+                             ((((k % KCH) >> 3) ^ (n & 7)) << 4) + (k & 7) * 2) = v;
   };
-
-  // ---- expand on the tensor cores, two stages of cp.async in flight
-  float acc[G::MPW][NT][4];
+  if (wvec) {  // eight expanded channels a 16-byte load
+    for (int i = tid; i < nch * KCH * (CT / 8); i += THREADS) {
+      const int k = i / (CT / 8), n = (i % (CT / 8)) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (k < cin && c0 + n < cexp) v = *reinterpret_cast<const uint4*>(w_exp + (int64_t)k * cexp + c0 + n);
+      const bf16* const e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-  for (int mi = 0; mi < G::MPW; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.0f;
-
-  // one commit group per chunk (empty past the last), so group ch is complete once
-  // at most STAGES - 1 newer groups are pending
-  const int nchunks = (cin + KC - 1) / KC;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load_stage(s, s * KC);
-    hopper::cp_async_commit();
-  }
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int next = ch + STAGES - 1;
-    if (next < nchunks) load_stage(next % STAGES, next * KC);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<STAGES - 1>();
-    __syncthreads();  // this chunk's stage is complete for every thread
-    const bf16* const xs = sm + (ch % STAGES) * G::STAGE;
-    const bf16* const ws = xs + G::ROWS * XS;
-    const int ksteps = (min(KC, cin - ch * KC) + 15) / 16;
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      if (ks < ksteps) {
-        const int kk = ks * 16;
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          uint32_t r[4];
-          hopper::ldmatrix_x4_trans(
-              r, hopper::smem_addr(ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * WS + j * 16 +
-                                   (lane >> 4) * 8));
-          b[2 * j][0] = r[0];
-          b[2 * j][1] = r[1];
-          b[2 * j + 1][0] = r[2];
-          b[2 * j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mi = 0; mi < G::MPW; ++mi) {
-          const int mt = warp + mi * WARPS;
-          if (mt < G::MT) {
-            uint32_t a[4];
-            hopper::ldmatrix_x4(
-                a, hopper::smem_addr(xs + (mt * 16 + (lane & 15)) * XS + kk + (lane >> 4) * 8));
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) hopper::mma_bf16_16816(acc[mi][nt], a, b[nt][0], b[nt][1]);
-          }
-        }
-      }
+      for (int j = 0; j < 8; ++j) put_w(k, n + j, e[j]);
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // ---- BN1 + SiLU, SAME zeros outside the image, bf16 expanded tile over the stages
-  bf16* const es = sm;                 // [NP][ES]
-  bf16* const os = sm + G::NP * ES;    // [TH * TW][ES]
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-#pragma unroll
-  for (int mi = 0; mi < G::MPW; ++mi) {
-    const int mt = warp + mi * WARPS;
-    if (mt >= G::MT) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = mt * 16 + g + h * 8;
-      if (p >= G::NP) continue;
-      const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = nt * 8 + q2;
-        const float v0 = silu_bf16(
-            bf16_round(bn_bf16(acc[mi][nt][2 * h], s_bn[0][c], s_bn[1][c], s_bn[2][c])));
-        const float v1 = silu_bf16(bf16_round(
-            bn_bf16(acc[mi][nt][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1], s_bn[2][c + 1])));
-        *reinterpret_cast<__nv_bfloat162*>(es + p * ES + c) =
-            inside ? __floats2bfloat162_rn(v0, v1) : __float2bfloat162_rn(0.0f);
-      }
+  } else {
+    for (int i = tid; i < nch * KCH * CT; i += THREADS) {
+      const int k = i / CT, n = i % CT;
+      put_w(k, n, k < cin && c0 + n < cexp ? w_exp[(int64_t)k * cexp + c0 + n]
+                                            : __float2bfloat16(0.0f));
     }
   }
+  for (int i = tid; i < R * wr * (ES / 8); i += THREADS)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+  hopper::fence_proxy_async();  // the weights, written by ordinary stores, for wgmma
   __syncthreads();
 
-  // ---- depthwise K x K, two channels a thread, a window sliding along SEG columns;
-  // each item sums its outputs inside the image (the squeeze) in column order
-  constexpr int PAIRS = CT / 2;
-  constexpr int ITEMS = PAIRS * TH * SEGS_W;
-  for (int it = tid; it < ITEMS; it += THREADS) {
-    const int c = (it % PAIRS) * 2, rest = it / PAIRS;
-    const int r = rest / SEGS_W, col0 = (rest % SEGS_W) * SEG;
-    if (y0 + r >= H) {
-      *reinterpret_cast<float2*>(&s_sq[rest][c]) = make_float2(0.0f, 0.0f);
-      continue;
+  // the expand: warpgroup nh's wgmma computes expanded channels 24 nh .. 24 nh + 23
+  // of the step's 64 positions; its warp mt holds rows 16 mt .. 16 mt + 15 (the
+  // epilogue's m16 tile), whose positions exist when mt < mts
+  const int mt = warp & 3, nh = warp >> 2;
+  const bool has_rows = mt < mts;
+  const uint32_t w_addr = hopper::smem_addr(s_w) + nh * 24 * 128;
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+  const bf16* const ximg = x + img * H * W * cin;
+  // the epilogue's two positions of each thread, and its depthwise items: the same
+  // in every step
+  int ep_rr[2], ep_col[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = mt * 16 + g + h * 8, rr = p / ncp, cc = p - rr * ncp;
+    ep_rr[h] = rr;
+    ep_col[h] = cc < nc ? cc + xs - x0 + PAD : -1;  // -1: past the in-image columns
+  }
+  int it_rr[IPT], it_col0[IPT];
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    const int rest = (tid + k * THREADS) / PAIRS;
+    it_rr[k] = rest / nseg;
+    it_col0[k] = (rest - it_rr[k] * nseg) * SEG;
+  }
+  float sq[IPT][2];
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) sq[k][0] = sq[k][1] = 0.0f;
+
+  int head = 0;  // the ring row of the step's first row: (s * rs) % R
+#pragma unroll 1
+  for (int s = 0; s < nsteps; ++s) {
+    // ---- expand the step's rs input rows, chunk by chunk, on the tensor cores: the
+    // k16 steps in order from zero into one sum (the plain version's torch.mm bits)
+    float acc[12];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) acc[r] = 0.0f;
+#pragma unroll 1
+    for (int ch = 0; ch < nch; ++ch) {
+      const int i = s * nch + ch, slot = i % SLOTS;
+      unsigned char* const xin = in_ring + slot * SLOT_BYTES;
+      if (tma) {
+        hopper::mbar_wait(hopper::smem_addr(&s_bar[slot]), (i / SLOTS) & 1);
+      } else {  // element by element, into the layout TMA's swizzle gives
+#pragma unroll 1
+        for (int e = tid; e < rs * ncp * KCH; e += THREADS) {
+          const int p = e / KCH, cl = e % KCH, rr = p / ncp;
+          const int gy = ybase + s * rs + rr, gx = xs + p - rr * ncp, ci = ch * KCH + cl;
+          const bool ok = gy >= 0 && gy < H && gx < W && ci < cin;
+          *reinterpret_cast<bf16*>(xin + p * 128 + (((cl >> 3) ^ (p & 7)) << 4) + (cl & 7) * 2) =
+              ok ? ximg[((int64_t)gy * W + gx) * cin + ci] : __float2bfloat16(0.0f);
+        }
+        hopper::fence_proxy_async();  // ordinary stores, read by wgmma
+        __syncthreads();
+      }
+      {  // the chunk's k16 steps in order, each a wgmma reading the slot and the weights
+        const int ksteps = (min(KCH, cin - ch * KCH) + 15) / 16;
+        const uint32_t a_addr = hopper::smem_addr(xin), b_addr = w_addr + ch * W_CHUNK;
+#pragma unroll
+        for (int r = 0; r < 12; ++r) hopper::fence_operand(acc[r]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KCH / 16; ++ks)
+          if (ks < ksteps)
+            hopper::wgmma_m64n24k16_bf16(acc, hopper::wgmma_desc_sw128(a_addr + ks * 32),
+                                         hopper::wgmma_desc_sw128(b_addr + ks * 32));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait0();
+#pragma unroll
+        for (int r = 0; r < 12; ++r) hopper::fence_operand(acc[r]);
+      }
+      __syncthreads();  // every warp is done with the slot
+      if (tma && tid == 0 && i + SLOTS < total) fetch(i + SLOTS);
     }
-    float2 wk[K * K];
+
+    // ---- BN1 + SiLU into the ring, bf16; zeros for rows outside the image
+    if (has_rows) {
 #pragma unroll
-    for (int t = 0; t < K * K; ++t) wk[t] = *reinterpret_cast<const float2*>(&s_wdw[t][c]);
-    const float m0 = s_bn[3][c], m1 = s_bn[3][c + 1], mu0 = s_bn[4][c], mu1 = s_bn[4][c + 1];
-    const float bi0 = s_bn[5][c], bi1 = s_bn[5][c + 1];
-    float sq0 = 0.0f, sq1 = 0.0f;
-    float2 win[K][K];
+      for (int h = 0; h < 2; ++h) {
+        if (ep_col[h] < 0) continue;
+        const int gy = ybase + s * rs + ep_rr[h];
+        const bool inside = gy >= 0 && gy < H;
+        const int sl = head + ep_rr[h] < R ? head + ep_rr[h] : head + ep_rr[h] - R;
+        bf16* const dst = ring + (sl * wr + ep_col[h]) * ES;
 #pragma unroll
-    for (int dy = 0; dy < K; ++dy)
+        for (int j = 0; j < 3; ++j) {
+          const int c = (nh * 3 + j) * 8 + q2;
+          const float v0 = silu_tab(
+              bf16_round(bn_bf16(acc[4 * j + 2 * h], s_bn[0][c], s_bn[1][c], s_bn[2][c])), s_tab);
+          const float v1 = silu_tab(bf16_round(bn_bf16(acc[4 * j + 2 * h + 1], s_bn[0][c + 1],
+                                                       s_bn[1][c + 1], s_bn[2][c + 1])),
+                                    s_tab);
+          *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+              inside ? __floats2bfloat162_rn(v0, v1) : __float2bfloat162_rn(0.0f);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- depthwise K x K for the output rows the ring now completes: an item is a
+    // channel pair, one of the step's rows and SEG columns; its sums go over dy, then
+    // dx, from zero (the plain version's order), a window of K columns sliding along
+    // each ring row; the item's squeeze sums stay in registers for the whole walk
 #pragma unroll
-      for (int dx = 0; dx < K; ++dx) win[dy][dx] = make_float2(0.0f, 0.0f);
+    for (int k = 0; k < IPT; ++k) {
+      const int item = tid + k * THREADS;
+      if (item >= items) continue;
+      const int c = (item % PAIRS) * 2, col0 = it_col0[k];
+      const int yl = s * rs + it_rr[k] - (K - 1);  // the output row, from y0
+      if (yl < 0 || yl >= sht) continue;
+      int sl = head + it_rr[k] + R - (K - 1);  // the ring row of output row yl's dy = 0
+      sl -= sl >= R ? R : 0;
+      sl -= sl >= R ? R : 0;
+      float2 a[SEG];
 #pragma unroll
-    for (int j = 0; j < SEG + K - 1; ++j) {
+      for (int o = 0; o < SEG; ++o) a[o] = make_float2(0.0f, 0.0f);
 #pragma unroll
       for (int dy = 0; dy < K; ++dy) {
+        const bf16* const src = ring + (sl * wr + col0) * ES + c;
+        sl = sl + 1 == R ? 0 : sl + 1;
+        float2 wk[K], win[K];
 #pragma unroll
-        for (int dx = 0; dx < K - 1; ++dx) win[dy][dx] = win[dy][dx + 1];
-        win[dy][K - 1] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            es + ((r + dy) * G::WP + col0 + j) * ES + c));
-      }
-      if (j >= K - 1) {
-        float a0 = 0.0f, a1 = 0.0f;
+        for (int dx = 0; dx < K; ++dx) {
+          wk[dx] = *reinterpret_cast<const float2*>(&s_wdw[dy * K + dx][c]);
+          win[dx] = make_float2(0.0f, 0.0f);
+        }
 #pragma unroll
-        for (int dy = 0; dy < K; ++dy)
+        for (int j = 0; j < SEG + K - 1; ++j) {
 #pragma unroll
-          for (int dx = 0; dx < K; ++dx) {
-            a0 = fmaf(win[dy][dx].x, wk[dy * K + dx].x, a0);
-            a1 = fmaf(win[dy][dx].y, wk[dy * K + dx].y, a1);
+          for (int dx = 0; dx < K - 1; ++dx) win[dx] = win[dx + 1];
+          win[K - 1] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + j * ES));
+          if (j >= K - 1) {
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx) {
+              a[j - (K - 1)].x = fmaf(win[dx].x, wk[dx].x, a[j - (K - 1)].x);
+              a[j - (K - 1)].y = fmaf(win[dx].y, wk[dx].y, a[j - (K - 1)].y);
+            }
           }
-        const float v0 = silu_bf16(bf16_round(bn_bf16(a0, m0, mu0, bi0)));
-        const float v1 = silu_bf16(bf16_round(bn_bf16(a1, m1, mu1, bi1)));
-        const int col = col0 + j - (K - 1);
-        *reinterpret_cast<__nv_bfloat162*>(os + (r * TW + col) * ES + c) =
-            __floats2bfloat162_rn(v0, v1);
-        if (x0 + col < W) {
-          sq0 += v0;
-          sq1 += v1;
         }
       }
+      const float m0 = s_bn[3][c], m1 = s_bn[3][c + 1], mu0 = s_bn[4][c], mu1 = s_bn[4][c + 1];
+      const float bi0 = s_bn[5][c], bi1 = s_bn[5][c + 1];
+      const bool store = c0 + c < cexp;
+      bf16* const orow = out + ((img * H + y0 + yl) * W + x0 + col0) * cexp + c0 + c;
+      float row0 = 0.0f, row1 = 0.0f;  // this row's sums, then added to the walk's
+#pragma unroll
+      for (int o = 0; o < SEG; ++o) {
+        if (col0 + o < swt) {
+          const float v0 = silu_tab(bf16_round(bn_bf16(a[o].x, m0, mu0, bi0)), s_tab);
+          const float v1 = silu_tab(bf16_round(bn_bf16(a[o].y, m1, mu1, bi1)), s_tab);
+          if (store) {
+            bf16* const dst = orow + (int64_t)o * cexp;
+            if (ovec) {
+              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              dst[0] = __float2bfloat16_rn(v0);
+              if (c0 + c + 1 < cexp) dst[1] = __float2bfloat16_rn(v1);
+            }
+          }
+          row0 += v0;
+          row1 += v1;
+        }
+      }
+      sq[k][0] += row0;
+      sq[k][1] += row1;
     }
-    *reinterpret_cast<float2*>(&s_sq[rest][c]) = make_float2(sq0, sq1);
+    head = head + rs < R ? head + rs : head + rs - R;
+  }
+
+  // ---- the block's squeeze partial: the items' sums, then one thread a channel adds
+  // them in order (row of the step, then column segment); the input ring is free
+  __syncthreads();
+  float* const s_sq = reinterpret_cast<float*>(in_ring);  // [items][2]
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    const int item = tid + k * THREADS;
+    if (item < items) {
+      s_sq[2 * item] = sq[k][0];
+      s_sq[2 * item + 1] = sq[k][1];
+    }
   }
   __syncthreads();
-
-  // ---- the tile's squeeze partial: one thread a channel adds the items in order
   if (tid < CT) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int i = 0; i < TH * SEGS_W; ++i) s += s_sq[i][tid];
-    partials[((img * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * CT + tid] = s;
-  }
-
-  // ---- store: 16 bytes a thread, masked at the image and channel edges
-  constexpr int SEGS = CT / 8;
-  for (int i = tid; i < TH * TW * SEGS; i += THREADS) {
-    const int pos = i / SEGS, s = i % SEGS;
-    const int gy = y0 + pos / TW, gx = x0 + pos % TW, c = c0 + s * 8;
-    if (gy >= H || gx >= W || c >= cexp) continue;
-    bf16* const dst = out + ((img * H + gy) * W + gx) * cexp + c;
-    const bf16* const src = os + pos * ES + s * 8;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && c + e < cexp; ++e) dst[e] = src[e];
-    }
+    float sum = 0.0f;
+#pragma unroll 1
+    for (int rest = 0; rest < rs * nseg; ++rest) sum += s_sq[2 * (rest * PAIRS + tid / 2) + (tid & 1)];
+    part[tid] = sum;
   }
 }
 
+// cuTensorMapEncodeTiled through the runtime's entry-point query (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                   : nullptr;
+  }();
+  return fn;
+}
+
+// Static shared memory of the kernel for K (the arrays above).
+constexpr int static_smem(int K) { return 6 * CT * 4 + K * K * CT * 4 + SLOTS * 8; }
+
 template <int K>
 int launch_bf16(const void* x, const void* w_exp, const Bn& bn, const void* w_dw, void* out,
-                void* partials, int batch, int H, int W, int cin, int cexp, cudaStream_t stream) {
-  using G = Geometry<K>;
-  auto kernel = expand_dw_bf16_kernel<K>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         G::SMEM);
+                void* partials, const void* table, int batch, int H, int W, int cin, int cexp,
+                cudaStream_t stream) {
+  const Geo g = geometry(H, W, K);
+  auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
+  // TMA reads rows of Cin bf16 values: Cin a multiple of 8 (16-byte strides) and x
+  // on a 16-byte boundary; else the chunks are staged element by element
+  const int tma = cin > 0 && cin % 8 == 0 && aligned(x, 16);
+  const int wvec = cexp % 8 == 0 && aligned(w_exp, 16);
+  const int ovec = cexp % 2 == 0 && aligned(out, 4);
+  const int nch = std::max(1, (cin + KCH - 1) / KCH);
+  // shared memory with a ring of `rows`, and the blocks an SM it allows: 228 KB, 1 KB
+  // of it reserved a block; the registers allow three at K = 3 (at K = 5 the 85
+  // registers a thread that takes spill) and two at K = 5
+  auto smem_of = [&](int rows) {
+    return 1024 + SLOTS * SLOT_BYTES + nch * W_CHUNK + TAB_BYTES +
+           rows * (g.sw + K - 1 + SEG) * ES * 2;
+  };
+  auto blocks_of = [&](int rows) {
+    return std::min(K == 3 ? 3 : 2, 233472 / (smem_of(rows) + static_smem(K) + 1024));
+  };
+  const int rows = K - 1 + g.rs;
+  const int smem = smem_of(rows);
+  if (smem + static_smem(K) > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = blocks_of(rows) == 3 ? expand_dw_bf16_kernel<K, K == 3 ? 3 : 2>
+                                     : expand_dw_bf16_kernel<K, 2>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_w = (W + TW - 1) / TW;
-  const int64_t tiles = static_cast<int64_t>((H + TH - 1) / TH) * tiles_w;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int vec = cin % 8 == 0 && cexp % 8 == 0 && aligned(x) && aligned(w_exp) && aligned(out);
-  // channel tiles run fastest, so the blocks that share a halo tile share it in L2
-  const dim3 grid((cexp + CT - 1) / CT, static_cast<unsigned>(tiles), batch);
-  kernel<<<grid, THREADS, G::SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w_exp), bn,
-      static_cast<const bf16*>(w_dw), static_cast<bf16*>(out), static_cast<float*>(partials), H,
-      W, cin, cexp, tiles_w, vec);
+  CUtensorMap tmap;
+  memset(&tmap, 0, sizeof(tmap));
+  if (tma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(W),
+                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(cin) * 2,
+                                   static_cast<cuuint64_t>(W) * cin * 2,
+                                   static_cast<cuuint64_t>(H) * W * cin * 2};
+    const cuuint32_t box[4] = {KCH, static_cast<cuuint32_t>(g.ncp),
+                               static_cast<cuuint32_t>(g.rs), 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // channel tiles run fastest, so the blocks that read one strip read it from L2
+  const dim3 grid((cexp + CT - 1) / CT, g.n_s * g.n_seg, batch);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      tmap, static_cast<const bf16*>(x), static_cast<const bf16*>(w_exp), bn,
+      static_cast<const bf16*>(w_dw), static_cast<bf16*>(out), static_cast<float*>(partials),
+      static_cast<const uint16_t*>(table), H, W, cin, cexp, g.sw, g.sh, g.n_s, g.ncp, g.rs, tma,
+      wvec, ovec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -796,8 +984,11 @@ int launch_f32(const void* x, const void* w_exp, const Bn& bn, const void* w_dw,
 // Output tiles of one image and channel tile (the partials' middle dimension):
 // dtype 0 = float32, 1 = bfloat16.
 extern "C" int mbconv_expand_dw_tiles(int dtype, int H, int W) {
-  const int th = dtype == 1 ? tc::TH : f32::TH, tw = dtype == 1 ? tc::TW : f32::TW;
-  return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  if (dtype == 1) {
+    const tc::Geo g = tc::geometry(H, W, 3);  // strips and segments do not depend on K
+    return g.n_s * g.n_seg;
+  }
+  return ((H + f32::TH - 1) / f32::TH) * ((W + f32::TW - 1) / f32::TW);
 }
 
 // The partials' last dimension: Cexp rounded up to the channel tile.
@@ -815,7 +1006,8 @@ extern "C" int mbconv_expand_dw(int dtype, int k, const void* x, const void* w_e
                                 const void* mean1, const void* mul1, const void* bias1,
                                 const void* w_dw, const void* mean2, const void* mul2,
                                 const void* bias2, void* out, void* squeeze, void* partials,
-                                int batch, int H, int W, int cin, int cexp, void* stream) {
+                                const void* table, int batch, int H, int W, int cin, int cexp,
+                                void* stream) {
   if (batch == 0 || cexp == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 0 || W == 0)
@@ -829,9 +1021,9 @@ extern "C" int mbconv_expand_dw(int dtype, int k, const void* x, const void* w_e
   else if (dtype == 0 && k == 5)
     err = f32::launch_f32<5>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
   else if (dtype == 1 && k == 3)
-    err = tc::launch_bf16<3>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+    err = tc::launch_bf16<3>(x, w_exp, bn, w_dw, out, partials, table, batch, H, W, cin, cexp, st);
   else if (dtype == 1 && k == 5)
-    err = tc::launch_bf16<5>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+    err = tc::launch_bf16<5>(x, w_exp, bn, w_dw, out, partials, table, batch, H, W, cin, cexp, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
@@ -839,5 +1031,14 @@ extern "C" int mbconv_expand_dw(int dtype, int k, const void* x, const void* w_e
   squeeze_tiles_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(partials), static_cast<float*>(squeeze),
       mbconv_expand_dw_tiles(dtype, H, W), cexp, mbconv_expand_dw_channels(cexp), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r = the bf16 SiLU's sigmoid (`sigmoid_bf16`) of n bf16 values a, as bf16: the
+// kernel's SiLU table is this function of its 3844 inputs (`ops.cuda_mbconv.silu_table`).
+extern "C" int mbconv_sigmoid_bf16(const void* a, void* r, int n, void* stream) {
+  if (n <= 0) return 0;
+  sigmoid_bf16_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(a), static_cast<uint16_t*>(r), n);
   return static_cast<int>(cudaGetLastError());
 }

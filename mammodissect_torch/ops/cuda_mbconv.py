@@ -21,7 +21,10 @@ design. `fused_expand_dw` launches the kernel for CUDA tensors and runs
 has the TPU kernel): on inputs that need a gradient it raises.
 `fused_expand_dw.launches` counts the kernel's launches and
 `fused_expand_dw.reduce_launches` those of its second kernel, which adds the squeeze's
-tile partials (one a launch).
+tile partials (one a launch). The bf16 kernel reads its SiLU's sigmoid from a table
+(`silu_table`: built once a card by the kernel's own sigmoid, `sigmoid_bf16`, and
+cached here; `silu_tab_plain` is its lookup in plain PyTorch, held to the op chain
+over every bf16 value by the tests).
 """
 from __future__ import annotations
 
@@ -31,10 +34,17 @@ import torch
 import torch.nn.functional as F
 
 from mammodissect_torch.ops import kernels
-from mammodissect_torch.ops.activations import silu_chain
+from mammodissect_torch.ops.activations import _sigmoid_chain, silu_chain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FP32_LAUNCH_ELEMENTS = 2 ** 31 - 1  # output values of one fp32 launch (32-bit offsets)
+# The bf16 SiLU's table (`csrc/mbconv_expand_dw.cu`): the sigmoid r of the bf16
+# magnitudes TAB_LO (the largest below 2^-8) to TAB_HI (2^7), a >= 0 and then a < 0
+TAB_LO = (119 << 7) - 1
+TAB_HI = 134 << 7
+TAB_SPAN = TAB_HI - TAB_LO + 1
+TABLE_ENTRIES = 2 * TAB_SPAN
+_TABLES = {}  # CUDA device index -> its table
 
 
 def fold_bn(weight, bias, running_mean, running_var, eps: float = 1e-3):
@@ -117,6 +127,70 @@ def expand_dw_plain(x: torch.Tensor, w_exp: torch.Tensor, bn1_mean: torch.Tensor
     return y.to(dtype).permute(0, 2, 3, 1).contiguous(), y.sum(dim=(2, 3))
 
 
+def silu_table_inputs(device="cpu") -> torch.Tensor:
+    """The table's 3844 bf16 inputs in its order: a >= 0, then a < 0, each by
+    magnitude from the largest bf16 below 2^-8 up to 2^7."""
+    i = torch.arange(TABLE_ENTRIES, dtype=torch.int32)
+    bits = (i // TAB_SPAN) * 0x8000 + i % TAB_SPAN + TAB_LO
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16).view(
+        torch.bfloat16).to(device)
+
+
+def silu_table_index(a: torch.Tensor) -> torch.Tensor:
+    """The table entry the kernel reads for each bf16 value a (int64): its bf16
+    magnitude clamped to [TAB_LO, TAB_HI], less TAB_LO, plus TAB_SPAN for a < 0. r is
+    constant below TAB_LO (0.5) and above TAB_HI (1, or 0 for a < 0), so the ends of
+    each half hold the constants."""
+    bits = a.view(torch.int16).to(torch.int32) & 0xFFFF
+    return ((bits & 0x7FFF).clamp(TAB_LO, TAB_HI) - TAB_LO + (bits >> 15) * TAB_SPAN).long()
+
+
+def sigmoid_bf16(a: torch.Tensor) -> torch.Tensor:
+    """The bf16 SiLU's sigmoid r of bf16 values, as bf16: on the CPU the op chain
+    (`ops.activations._sigmoid_chain`), on the card the kernel's own `sigmoid_bf16`
+    (`mbconv_sigmoid_bf16`), the function the kernel's SiLUs compute."""
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"sigmoid_bf16: bf16 input, got {a.dtype}")
+    if a.device.type == "cpu":
+        return _sigmoid_chain(a)
+    a = a.contiguous()
+    r = torch.empty_like(a)
+    fn = kernels.load("mbconv_expand_dw").mbconv_sigmoid_bf16
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        kernels.check(fn(a.data_ptr(), r.data_ptr(), a.numel(),
+                         torch.cuda.current_stream().cuda_stream), "mbconv_sigmoid_bf16")
+    return r
+
+
+def silu_table(device) -> torch.Tensor:
+    """The kernel's SiLU table [3844] bf16 on `device`: `sigmoid_bf16` of
+    `silu_table_inputs`. A CUDA device's is built once, by the kernel's own sigmoid,
+    and kept (the card's bits, whatever its exponential gives); the CPU's is the op
+    chain's, the reference the tests and `chip_smoke.py` hold it to."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return sigmoid_bf16(silu_table_inputs())
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    table = _TABLES.get(index)
+    if table is None:
+        table = sigmoid_bf16(silu_table_inputs(torch.device("cuda", index)))
+        torch.cuda.synchronize(index)  # a launch on another stream may read it next
+        _TABLES[index] = table
+    return table
+
+
+def silu_tab_plain(a: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The kernel's SiLU of bf16 values a read from `table`, in plain PyTorch: the
+    product a * r unrounded (float32; exact, a bf16 times a bf16), r the entry
+    `silu_table_index` selects; Inf and NaN take the op chain. Rounded to bf16 it is
+    the output, unrounded the value the squeeze sums."""
+    special = (a.view(torch.int16).to(torch.int32) & 0x7F80) == 0x7F80
+    r = table.float()[silu_table_index(a)]
+    return torch.where(special, silu_chain(a, rounded=False), a.float() * r)
+
+
 def _fold_terms(mean, mul, bias):
     """The float32 path's BatchNorm as the kernel folds it: [C, 1, 1] scale and shift."""
     return mul[:, None, None], (bias - mean * mul)[:, None, None]
@@ -163,8 +237,9 @@ def _launch(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2):
     out = torch.empty((b, h, w, cexp), dtype=x.dtype, device=x.device)
     squeeze = torch.empty((b, cexp), dtype=torch.float32, device=x.device)
     partials = torch.empty((min(b, chunk), tiles, cpad), dtype=torch.float32, device=x.device)
+    table = silu_table(x.device).data_ptr() if x.dtype == torch.bfloat16 else None
     fn = lib.mbconv_expand_dw
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -173,7 +248,7 @@ def _launch(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2):
             rc = fn(code, k, x[i].data_ptr(), w_exp.data_ptr(),
                     *(v.data_ptr() for v in vecs[:3]), w_dw.data_ptr(),
                     *(v.data_ptr() for v in vecs[3:]), out[i].data_ptr(), squeeze[i].data_ptr(),
-                    partials.data_ptr(), n, h, w, cin, cexp, stream)
+                    partials.data_ptr(), table, n, h, w, cin, cexp, stream)
             kernels.check(rc, "mbconv_expand_dw")
             if h and w and cexp:
                 fused_expand_dw.launches += 1

@@ -132,11 +132,23 @@ def _assert_squeeze_close(got, want, out, atol, rtol):
     assert bool((err <= bound).all()), float((err / bound).max())
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, dict(atol=2e-3, rtol=2e-2)),
+# bf16: the kernel's output is its plain version's bit for bit (on the card the plain
+# expand is `torch.mm(..., out_dtype=float32)`, whose sums the kernel's wgmma matches)
+BF16_EXACT = dict(atol=0.0, rtol=0.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_EXACT),
                                        (torch.float32, dict(atol=1e-4, rtol=1e-4))])
 @pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 38, 29, 40, 240), (5, 19, 17, 64, 384),
-                                            (3, 6, 5, 512, 3072), (5, 9, 33, 176, 1056)])
+                                            (3, 6, 5, 512, 3072), (5, 9, 33, 176, 1056),
+                                            (3, 20, 65, 40, 240), (5, 19, 121, 64, 384),
+                                            (5, 33, 29, 304, 1824), (3, 65, 57, 128, 768),
+                                            (5, 14, 29, 64, 384), (3, 5, 16, 64, 96)])
 def test_mbconv_kernel_matches_plain(cuda, dtype, tol, k, h, w, cin, cexp):
+    """Besides B5's and V2-S's shapes, the bf16 kernel's strips and segments: W 65
+    (one past the widest single strip: two strips) and 121 (three), H 33 and 65 (one
+    past one and two 32-row segments), W 29 in one strip at both K (two rows a step)
+    and W 16 (four rows a step). bf16 bit for bit; two launches identical."""
     args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
     before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
     got, squeeze = fused_expand_dw(*args)
@@ -146,6 +158,8 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, tol, k, h, w, cin, cexp):
     want, want_squeeze = expand_dw_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
     _assert_squeeze_close(squeeze, want_squeeze, want, **_squeeze_tol(dtype, tol))
+    again, squeeze_again = fused_expand_dw(*args)
+    assert torch.equal(again, got) and torch.equal(squeeze_again, squeeze)
 
 
 def _squeeze_tol(dtype, tol):
@@ -189,16 +203,26 @@ def test_mbconv_kernel_fp32_call_split_into_launches(cuda, monkeypatch, k, h, w,
     assert torch.equal(split, whole) and torch.equal(split_squeeze, whole_squeeze)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, dict(atol=2e-3, rtol=2e-2)),
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_EXACT),
                                        (torch.float32, dict(atol=1e-4, rtol=1e-4))])
-@pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 21, 19, 24, 144), (5, 13, 11, 20, 120),
-                                            (3, 10, 9, 40, 100), (5, 17, 18, 56, 104)])
-def test_mbconv_kernel_odd_widths(cuda, dtype, tol, k, h, w, cin, cexp):
-    """Cin not a multiple of 16 (24, 56) or of 8 (20: element-wise staging in bf16),
-    Cexp not a multiple of the 48-channel tile (104, 120) or of 8 (100: element-wise
-    stores in bf16). fp32 stages element by element only where a width is not a
-    multiple of 4 or a pointer is not 16-byte aligned: `test_mbconv_kernel_fp32_element_staging`."""
-    args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
+@pytest.mark.parametrize("k,h,w,cin,cexp,shifted", [(3, 21, 19, 24, 144, None),
+                                                    (5, 13, 11, 20, 120, None),
+                                                    (3, 10, 9, 40, 100, None),
+                                                    (5, 17, 18, 56, 104, None),
+                                                    (5, 37, 70, 20, 120, None),
+                                                    (3, 17, 29, 100, 101, None),
+                                                    (3, 21, 19, 24, 144, "x")])
+def test_mbconv_kernel_odd_widths(cuda, dtype, tol, k, h, w, cin, cexp, shifted):
+    """Cin not a multiple of 16 (24, 56, 100) or of 8 (20: in bf16 the chunks are
+    staged element by element, not by TMA; also across two strips and two segments,
+    70 x 37), Cexp not a multiple of the 48-channel tile (104, 120) or of 8 (100, 101:
+    element-wise weight staging in bf16; 101 also element-wise stores), x starting one
+    element past a 16-byte boundary (bf16: no TMA); bf16 bit for bit. fp32 stages
+    element by element only where a width is not a multiple of 4 or a pointer is not
+    16-byte aligned: `test_mbconv_kernel_fp32_element_staging`."""
+    args = list(_mbconv_args(2, h, w, cin, cexp, k, dtype, cuda))
+    if shifted:
+        args[0] = _unaligned(args[0])
     got, squeeze = fused_expand_dw(*args)
     want, want_squeeze = expand_dw_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)

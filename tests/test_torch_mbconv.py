@@ -13,11 +13,20 @@ import torch
 from mammodissect.ops.pallas_mbconv import fold_bn as jax_fold_bn
 from mammodissect.ops.pallas_mbconv import fused_expand_dw as jax_fused_expand_dw
 from mammodissect.ops.pallas_mbconv import xla_expand_dw
+from mammodissect_torch.ops.activations import _sigmoid_chain, silu_chain
 from mammodissect_torch.ops.cuda_mbconv import (
+    TAB_HI,
+    TAB_LO,
+    TAB_SPAN,
+    TABLE_ENTRIES,
     bn_terms,
     expand_dw_plain,
     fold_bn,
     fused_expand_dw,
+    silu_tab_plain,
+    silu_table,
+    silu_table_index,
+    silu_table_inputs,
 )
 
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)  # bf16 in/out, f32 accumulation, other sum order
@@ -217,6 +226,52 @@ def test_plain_bf16_squeeze_matches_jax_se_mean(k, h, w):
     want = np.asarray(mean_bf16.astype(jnp.float32))
     assert (port == want).mean() >= 0.99
     np.testing.assert_allclose(port, want, rtol=2 ** -8, atol=0)
+
+
+def _every_bf16():
+    bits = torch.arange(65536, dtype=torch.int32)
+    return bits, torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16).view(
+        torch.bfloat16)
+
+
+def test_silu_table_reads_silu_chain_over_every_bf16_value():
+    """The bf16 kernel's SiLU reads the sigmoid r from a table and multiplies once.
+    The table holds r for the magnitudes from the largest bf16 below 2^-8 to 2^7, each
+    sign (3844 entries); r is 0.5 below that range (zero included) and 1 (a > 0) or 0
+    (a < 0) above it, so the clamped magnitude finds every finite input's entry (inside
+    the range r is already 1 from 5.5625 up and flushed to 0 from -87.5 down). In
+    plain PyTorch (`silu_tab_plain`), over all 65536 bf16 values: the entries are the
+    chain's r of their inputs; Inf and NaN give the chain's result; the unrounded
+    product (the squeeze's value) and its bf16 rounding (the output) equal
+    `silu_chain`'s bit for bit."""
+    table = silu_table("cpu")
+    inputs = silu_table_inputs()
+    assert table.dtype == torch.bfloat16 and table.shape == (TABLE_ENTRIES,) == (3844,)
+    assert torch.equal(table.view(torch.int16), _sigmoid_chain(inputs).view(torch.int16))
+    assert float(inputs[0]) == 2.0 ** -8 - 2.0 ** -16 and float(inputs[TAB_SPAN - 1]) == 128.0
+    assert float(inputs[TAB_SPAN]) == -float(inputs[0])
+
+    bits, a = _every_bf16()
+    mag, neg = bits & 0x7FFF, bits >> 15
+    finite = mag < 0x7F80
+    r = _sigmoid_chain(a).float()
+    below, above = finite & (mag <= TAB_LO), finite & (mag >= TAB_HI)
+    assert bool((r[below] == 0.5).all())
+    assert bool((r[above & (neg == 0)] == 1.0).all()) and bool((r[above & (neg == 1)] == 0.0).all())
+    af = a.float()
+    assert bool((r[finite & (af >= 5.5625)] == 1.0).all())
+    assert bool((r[finite & (af < 5.5625)] < 1.0).all())
+    assert bool((r[finite & (af <= -87.5)] == 0.0).all())
+    assert bool((r[finite & (af > -87.5)] > 0.0).all())
+    assert torch.equal(table.float()[silu_table_index(a)][finite], r[finite])
+
+    got, want = silu_tab_plain(a, table), silu_chain(a, rounded=False)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    special = ~finite
+    assert int(special.sum()) == 256 and int(torch.isnan(got[special]).sum()) == 255
+    assert got[bits == 0x7F80].item() == float("inf")
+    assert torch.equal(got.to(torch.bfloat16).view(torch.int16), silu_chain(a).view(torch.int16))
 
 
 def test_fold_bn_matches_jax():

@@ -1,17 +1,19 @@
 """Kernel 2's time a B5 forward, the main path's and the C-dissect's img/s, of one or
 more checkouts of the repo on one card: `chip_smoke.py`'s phases 2 (build), 5
-(kernel 2 at the B5 shapes, bf16), 6 (the flagship resident M-dissect) and 8 (the
-C-dissect, with kernel 2's fp32 shapes) of each checkout, run in a process of its
-own and in the order given. Imports the port only (no JAX).
+(kernel 2 at the B5 shapes, bf16), 6 (the flagship resident M-dissect), 8 (the
+C-dissect, with kernel 2's fp32 shapes) and 13's kernel 2 at the V2-S shapes of each
+checkout, run in a process of its own and in the order given. Imports the port only
+(no JAX).
 
     python tools/ab_phases.py ROOT [ROOT ...]
 
 Give the same checkouts in a mirrored order (parent, change, change, parent) to
 compare two trees within one call. Each checkout's phases check what they check in
 `chip_smoke.py` (a failure stops the run). Prints the card's name and power limit,
-then one JSON line a checkout: its root, kernel 2's bf16 and fp32 ms a B5 forward
-(32 launches at batch 16) with the bf16 bound, the main path's img/s and peak memory,
-the C-dissect's img/s.
+then for each checkout its phase-5 lines (kernel 2 at each B5 shape) and one JSON
+line: its root, kernel 2's bf16 and fp32 ms a B5 forward (32 launches at batch 16)
+with the bf16 bound, the main path's img/s and peak memory, the C-dissect's img/s,
+kernel 2's bf16 and fp32 ms a V2-S forward (28 launches) with the bf16 bound.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ pool = smoke.mammo_pool(smoke.POOL, *smoke.IMAGE_HW, seed=0)
 dissector, _ = smoke.flagship_dissector(device)
 main = smoke.phase_main_path(device, pool, dissector)
 c = smoke.phase_c_dissect(device, pool, dissector)
+v2 = smoke.v2_mbconv_rows(device)
 print("AB " + json.dumps({
     "root": sys.argv[1],
     "kernel2_bf16_forward_ms": sum(r["ms"] * r["blocks"] for r in rows),
@@ -43,7 +46,11 @@ print("AB " + json.dumps({
     "kernel2_fp32_forward_ms": c["fp32_forward_ms"],
     "main_img_per_s": main["img_per_s"],
     "main_peak_gib": main["max_memory_allocated_bytes"] / 2 ** 30,
-    "c_dissect_img_per_s": c["img_per_s"]}), flush=True)
+    "c_dissect_img_per_s": c["img_per_s"],
+    "kernel2_v2_bf16_forward_ms": sum(r["bf16"]["ms"] * r["blocks"] for r in v2),
+    "kernel2_v2_fp32_forward_ms": sum(r["fp32"]["ms"] * r["blocks"] for r in v2),
+    "kernel2_v2_bf16_forward_bound_ms": sum(r["bf16"]["bound_ms"] * r["blocks"] for r in v2)}),
+      flush=True)
 """
 
 
@@ -62,6 +69,9 @@ def main(roots) -> int:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
             print(f"ab_phases: {root} failed (exit {proc.returncode})", file=sys.stderr)
             return 1
+        for line in proc.stdout.splitlines():  # kernel 2's lines, at each B5 shape
+            if line.startswith("[kernel 2]"):
+                print(f"{root} {line}", flush=True)
         results.append(json.loads(lines[-1][3:]))
         print(json.dumps(results[-1]), flush=True)
     return 0
