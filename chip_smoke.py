@@ -24,7 +24,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      version's at every shape and input set, within 1e-5 of the sum of |values| over
      H x W in bf16 (the values agree bit for bit, the sums' order differs) and within
      the elementwise tolerance summed over H x W in fp32; its bf16 output bit for bit
-     the plain version's; two launches give the same output and squeeze;
+     the plain version's; two launches give the same output and squeeze; its fp32
+     output within 1e-5 + 1e-5 |x| of the same function in float64 at every shape of
+     `tests/_mbconv_f64.py`'s PRECISION_SHAPES (expand-dominant inputs);
   6. the main path: `run_dissection` resident at full width (B5 at 1520x912, all 39
      blocks, 12-layer BERT, the 762 concepts, soft-WPMI, bf16 tower) on random
      weights from a seed and mammogram-shaped synthetic images; the kernels' launch
@@ -38,7 +40,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      batch in the target's fp32 harvest and 32 in the dissector's bf16 embed, kernel 1
      in the staged scoring. A second run must find every cache file and skip both
      harvests. Also kernel 2's fp32 time at each B5 shape at batch 16, beside the
-     CUDA-core design's and both bounds (3xTF32 and the fp32 FMAs);
+     previous fp32 design's (3xTF32 on mma.sync in 16 x 15 tiles, measured with it
+     in one call) and both bounds (3xTF32 and the fp32 FMAs); the fp32 launches each
+     launch the weight split (`split_weights_kernel`) once;
   9. the packed uint8 wire: a 16-image batch packed by the native packer and
      unpacked on the card must equal the batch; the resident main path on 256 images
      with the packed and the plain wire (in turns: plain, packed, packed, plain) must
@@ -173,23 +177,25 @@ POOL = 64              # unique synthetic mammograms, repeated cyclically
 CONCEPTS = os.path.join(ROOT, "mammodissect", "assets", "concepts",
                         "Specific_concepts_sorted.txt")
 # (k, H, W, Cin, Cexp, number of B5 blocks of this shape, the first version's ms,
-# the CUDA-core fp32 design's ms) at 1520x912; the last two columns are times per
+# the previous fp32 design's ms) at 1520x912; the last two columns are times per
 # launch at batch 16 on NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside this
 # run's: the first CUDA version's in bf16, and the fp32 instantiation's before its
-# 3xTF32 redesign (the mean of two runs)
+# strip-walk redesign (3xTF32 on mma.sync in 16 x 15 tiles; the mean of its two runs
+# in the call that timed both designs, `tools/ab_phases.py`)
 B5_SHAPES = [
-    (3, 380, 228, 40, 240, 4, 6.163, 6.6845),     # blocks 4-7
-    (5, 190, 114, 64, 384, 4, 2.999, 2.9017),     # 9-12
-    (3, 95, 57, 128, 768, 6, 2.153, 2.0454),      # 14-19
-    (5, 95, 57, 128, 768, 1, 2.474, 2.4081),      # 20
-    (5, 95, 57, 176, 1056, 6, 4.818, 4.7151),     # 21-26
-    (5, 48, 29, 304, 1824, 8, 3.217, 3.1753),     # 28-35
-    (3, 48, 29, 304, 1824, 1, 2.840, 2.7580),     # 36
-    (3, 48, 29, 512, 3072, 2, 7.223, 6.9318),     # 37-38
+    (3, 380, 228, 40, 240, 4, 6.163, 2.4702),     # blocks 4-7
+    (5, 190, 114, 64, 384, 4, 2.999, 1.5157),     # 9-12
+    (3, 95, 57, 128, 768, 6, 2.153, 0.9166),      # 14-19
+    (5, 95, 57, 128, 768, 1, 2.474, 1.1534),      # 20
+    (5, 95, 57, 176, 1056, 6, 4.818, 1.9516),     # 21-26
+    (5, 48, 29, 304, 1824, 8, 3.217, 1.3330),     # 28-35
+    (3, 48, 29, 304, 1824, 1, 2.840, 1.0796),     # 36
+    (3, 48, 29, 512, 3072, 2, 7.223, 2.7948),     # 37-38
 ]
 FIRST_VERSION_MS = {"wpmi": 0.923, "mbconv_forward": 124.0}  # same source and card
-# one B5 forward's 32 fp32 launches at batch 16 before the 3xTF32 redesign (PERF.md)
-FP32_CUDA_CORE_FORWARD_MS = 123.3
+# one B5 forward's 32 fp32 launches at batch 16 before the strip-walk redesign (the
+# same call)
+FP32_MMA_SYNC_FORWARD_MS = 51.639
 FT_BATCH = 8           # the fine-tune CLI's default batch
 FT_TIMED_STEPS = 10
 FT_POS_WEIGHT = 15.573306370070778  # VinDr Mass (cli.finetune.DEFAULT_BCE_WEIGHTS)
@@ -302,6 +308,7 @@ KERNEL_LABELS = {"mbconv bf16 k3": "expand_dw_bf16_kernelILi3ELi2",
                  "mbconv bf16 k5": "expand_dw_bf16_kernelILi5ELi2",
                  "mbconv fp32 k3": "expand_dw_f32_kernelILi3",
                  "mbconv fp32 k5": "expand_dw_f32_kernelILi5",
+                 "mbconv fp32 weight split": "split_weights_kernel",
                  "wpmi slab": "gather_logsum_slab_kernel",
                  "wpmi gather": "gather_logsum_kernel"}
 
@@ -424,7 +431,7 @@ def mbconv_bound(b, h, w, cin, cexp, k, dtype):
     bf16 = dtype == torch.bfloat16
     size = 2 if bf16 else 4
     pix = b * h * w
-    # the kernel's tiles of an image (fp32: 16 x 15 outputs; bf16: strips x segments)
+    # the kernel's tiles of an image: its strips x segments
     tiles = kernels.load("mbconv_expand_dw").mbconv_expand_dw_tiles(int(bf16), h, w)
     partials = b * tiles * -(-cexp // 48) * 48  # a squeeze partial a tile and channel
     t_bytes = (pix * (cin + cexp) * size + (cin * cexp + k * k * cexp) * size
@@ -560,6 +567,32 @@ def silu_table_check(device):
           == row["table_reads_differing"] == 0,
           f"the SiLU table or its sigmoid kernel disagrees with the op chain on the card: {row}")
     return row
+
+
+def fp32_precision_check(device):
+    """Phase 5's float32 gate: kernel 2's fp32 instantiation at the expand-dominant
+    inputs of `tests/_mbconv_f64.py` (batch 2) against the same function in float64
+    on the CPU, within F64_TOL (1e-5 + 1e-5 |x|), at every PRECISION_SHAPES entry: B5's
+    and V2-S's deep blocks, odd widths, several strips and segments with a ragged
+    last strip."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _mbconv_f64 as f64
+    from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
+
+    errs = {}
+    for k, h, w, cin, cexp in f64.PRECISION_SHAPES:
+        args = f64.expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, device)
+        got = fused_expand_dw(*args)[0].double().cpu()
+        errs[f"k{k} {cin}->{cexp} @ {h}x{w}"] = f64.relative_err(
+            got, f64.expand_dw_f64(*(a.cpu() for a in args)))
+    worst = max(errs.values())
+    say(f"[kernel 2 fp32] against float64, max |err| / (1 + |x|) at each precision shape: "
+        f"{ {name: float(f'{e:.3g}') for name, e in errs.items()} }; tolerance {f64.F64_TOL}")
+    check(worst <= f64.F64_TOL, f"kernel 2 fp32 is {worst:.3g} (1 + |x|) off float64, past "
+          f"{f64.F64_TOL}: {errs}")
+    return {"max_rel_err": worst, "shapes": len(errs), "tol": f64.F64_TOL}
 
 
 def phase_mbconv(device):
@@ -705,7 +738,7 @@ def fma_forward_ms(rows):
 def fp32_mbconv_rows(device):
     """Kernel 2's fp32 instantiation (the classifier target's) at each B5 shape at
     batch 16: ms, plain ms, max abs err and the 3xTF32 bound; the printed line adds
-    the CUDA-core design's ms and the fp32-FMA bound."""
+    the previous fp32 design's ms and the fp32-FMA bound."""
     import torch
 
     from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
@@ -730,7 +763,7 @@ def fp32_mbconv_rows(device):
         row.update(bound)
         rows.append(row)
         say(f"[kernel 2 fp32] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH}: {row['ms']:.4f} ms "
-            f"(CUDA-core design {before_ms:.4f} ms), plain {row['plain_ms']:.3f} ms"
+            f"(mma.sync design {before_ms:.4f} ms), plain {row['plain_ms']:.3f} ms"
             f"{slower_than_plain(row)}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
             f"fp32 FMAs {fma_ms:.4f} ms), max abs err {row['max_abs_err']:.3g}")
         del args
@@ -762,6 +795,7 @@ def phase_c_dissect(device, pool, dissector):
     for attempt in ("first", "rerun"):
         torch.cuda.reset_peak_memory_stats()
         fused_expand_dw.launches = 0
+        fused_expand_dw.weight_launches = 0
         soft_wpmi_gather_logsum.launches = 0
         logs = []
         torch.cuda.synchronize()
@@ -770,6 +804,7 @@ def phase_c_dissect(device, pool, dissector):
         torch.cuda.synchronize()
         runs.append({"wall_s": time.perf_counter() - t0, "logs": logs, "df": df,
                      "launches": {"mbconv": fused_expand_dw.launches,
+                                  "mbconv_weight_split": fused_expand_dw.weight_launches,
                                   "wpmi": soft_wpmi_gather_logsum.launches},
                      "peak": torch.cuda.max_memory_allocated()})
     first, rerun = runs
@@ -779,6 +814,10 @@ def phase_c_dissect(device, pool, dissector):
     check(first["launches"]["mbconv"] == 2 * 32 * n_batches,
           f"C-dissect: kernel 2 launched {first['launches']['mbconv']} times, expected "
           f"{2 * 32 * n_batches} (fp32 target harvest + bf16 dissector embed)")
+    check(first["launches"]["mbconv_weight_split"] == 32 * n_batches,
+          f"C-dissect: kernel 2's fp32 weight split launched "
+          f"{first['launches']['mbconv_weight_split']} times, expected {32 * n_batches} "
+          f"(once a launch of the fp32 target harvest)")
     check(first["launches"]["wpmi"] >= 1, "C-dissect: kernel 1 never launched")
     check(any(l.startswith(f"[harvest] {C_DISSECT_N} images x 39 layers") for l in first["logs"]),
           f"C-dissect did not harvest the target: {first['logs']}")
@@ -812,7 +851,7 @@ def phase_c_dissect(device, pool, dissector):
     say(f"[c-dissect] rerun: every cache file found, both harvests skipped, "
         f"{rerun['wall_s']:.2f} s, launches {rerun['launches']}")
     say(f"[kernel 2 fp32] one forward's 32 launches at batch {MAIN_BATCH}: "
-        f"{per_forward['ms']:.3f} ms against {FP32_CUDA_CORE_FORWARD_MS} ms before the 3xTF32 "
+        f"{per_forward['ms']:.3f} ms against {FP32_MMA_SYNC_FORWARD_MS} ms before the strip-walk "
         f"redesign, plain {per_forward['plain_ms']:.3f} ms, bound "
         f"{per_forward['bound_ms']:.3f} ms (3xTF32; fp32 FMAs {fma_forward_ms(fp32):.3f} ms)")
     return row
@@ -1641,16 +1680,18 @@ def phase_zoo(device, gdissect, c_dissect, pool):
     return {"runs": rows, "kernel1": kernel1, "card_vs_cpu": agree}
 
 
-# (k, H, W, Cin, Cexp, number of V2-S blocks of this shape, the CUDA-core fp32
+# (k, H, W, Cin, Cexp, number of V2-S blocks of this shape, the previous fp32
 # design's ms) at 1520x912: the 28 stride-1 expanded MBConv blocks of
 # EfficientNetV2-S, kernel 2's V2 shapes; the last column as B5_SHAPES' last
 V2_SHAPES = [
-    (3, 95, 57, 128, 512, 5, 1.3939),      # blocks 11-15
-    (3, 95, 57, 128, 768, 1, 2.0561),      # 16
-    (3, 95, 57, 160, 960, 8, 3.0357),      # 17-24
-    (3, 48, 29, 256, 1536, 14, 1.9489),    # 26-39
+    (3, 95, 57, 128, 512, 5, 0.6455),      # blocks 11-15
+    (3, 95, 57, 128, 768, 1, 0.9044),      # 16
+    (3, 95, 57, 160, 960, 8, 1.3377),      # 17-24
+    (3, 48, 29, 256, 1536, 14, 0.8061),    # 26-39
 ]
-V2_FP32_CUDA_CORE_FORWARD_MS = (60.442, 60.747)  # one V2-S forward's 28, two runs (PERF.md)
+# one V2-S forward's 28 fp32 launches before the strip-walk redesign (the call of
+# B5_SHAPES' last column)
+V2_FP32_MMA_SYNC_FORWARD_MS = 26.119
 V2_ARCH = "upmc_breast_clip_efficientnetv2-s_ft"
 V2_UNITS = 24 * 2 + 48 * 4 + 64 * 4 + 128 * 6 + 160 * 9 + 256 * 15  # 6544, all 40 blocks
 PT_BATCH, PT_TIMED_STEPS, PT_TEXT_LEN = 4, 10, 256  # pretraining: B5 + BERT at full width
@@ -1662,7 +1703,7 @@ def v2_mbconv_rows(device):
     """(a): kernel 2 against its plain version at each V2-S MBConv shape at the
     C-dissect's batch, fp32 (tol 1e-4 + 1e-4|x|) and bf16 (the scales and 2e-3/2e-2
     of phase 4), each timed with its plain version and its bound (fp32 adds the
-    fp32-FMA bound and the CUDA-core design's time to the printed line)."""
+    fp32-FMA bound and the previous fp32 design's time to the printed line)."""
     import torch
 
     from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
@@ -1690,7 +1731,7 @@ def v2_mbconv_rows(device):
         rows.append(row)
         f = row["fp32"]
         say(f"[kernel 2 V2] k{k} {cin}->{cexp} @ {h}x{w} B={MAIN_BATCH} ({n_blocks} blocks): "
-            f"fp32 {f['ms']:.4f} ms (CUDA-core design {before_ms:.4f} ms), plain {f['plain_ms']:.3f} ms"
+            f"fp32 {f['ms']:.4f} ms (mma.sync design {before_ms:.4f} ms), plain {f['plain_ms']:.3f} ms"
             f"{slower_than_plain(f)}, bound {f['bound_ms']:.4f} ms ({f['bound_by']}; fp32 FMAs "
             f"{fma_ms:.4f} ms), max abs err {f['max_abs_err']:.3g}; "
             f"bf16 {row['bf16']['ms']:.4f} ms, plain {row['bf16']['plain_ms']:.3f} ms, bound "
@@ -2096,8 +2137,8 @@ def phase_v2_pretrain(device, pool, c_dissect, png_root):
     per_forward = {d: {key: sum(r[d][key] * r["blocks"] for r in shapes)
                        for key in ("ms", "plain_ms", "bound_ms")} for d in ("fp32", "bf16")}
     for d, f in per_forward.items():
-        before = (f" against {V2_FP32_CUDA_CORE_FORWARD_MS[0]}-{V2_FP32_CUDA_CORE_FORWARD_MS[1]}"
-                  " ms before the 3xTF32 redesign" if d == "fp32" else "")
+        before = (f" against {V2_FP32_MMA_SYNC_FORWARD_MS} ms before the strip-walk redesign"
+                  if d == "fp32" else "")
         fma = f"; fp32 FMAs {fma_forward_ms(shapes):.3f} ms" if d == "fp32" else ""
         say(f"[kernel 2 V2] one V2-S forward's 28 launches at batch {MAIN_BATCH}, {d}: "
             f"{f['ms']:.3f} ms{before}, plain {f['plain_ms']:.3f} ms, bound "
@@ -2702,6 +2743,7 @@ def main():
     wpmi = phase_wpmi(MAIN_N, device)
     silu_table = silu_table_check(device)
     mbconv = phase_mbconv(device)
+    fp32_f64 = fp32_precision_check(device)
     say("[library] library_ms n/a for both kernels: no single PyTorch call computes "
         "either fused function")
     t0 = time.perf_counter()
@@ -2805,6 +2847,10 @@ def main():
          "fp32_ms": c_dissect["fp32_forward_ms"], "fp32_plain_ms": c_dissect["fp32_forward_plain_ms"],
          "fp32_bound_ms": c_dissect["fp32_forward_bound_ms"],
          "fp32_max_abs_err": c_dissect["fp32_max_abs_err"],
+         # phase 5: the fp32 instantiation against float64 at the precision shapes
+         # (max |err| / (1 + |x|)), and the C-dissect's fp32 weight-split launches
+         "fp32_f64_max_rel_err": fp32_f64["max_rel_err"],
+         "weight_launches_c_dissect": c_dissect["launches"]["mbconv_weight_split"],
          # the V2-S C-dissect's target: 28 a batch of 16 (phase 13a); pretraining: 0
          "launches_c_dissect_v2": v2pt["c_dissect_v2"]["launches"]["mbconv"],
          "launches_pretrain": pt_launches["mbconv"],

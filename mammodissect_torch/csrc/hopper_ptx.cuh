@@ -1,9 +1,7 @@
-// Inline PTX for the kernels under csrc/: asynchronous global->shared copies
-// (cp.async), shared-memory matrix loads (ldmatrix), the tf32 tensor-core product
-// (mma.sync m16n8k8) and the fp32 -> tf32 rounding, for sm_80 and later; Hopper's
-// tensor copies (TMA, cp.async.bulk.tensor), the shared-memory barriers (mbarrier)
-// that count their bytes, and the warpgroup product (wgmma, sm_90a). Used here on
-// sm_90a.
+// Inline PTX for the kernels under csrc/, for sm_90a: the fp32 -> tf32 rounding and
+// split of 3xTF32; Hopper's tensor copies (TMA, cp.async.bulk.tensor), the
+// shared-memory barriers (mbarrier) that count their bytes, and the warpgroup
+// product (wgmma) in bf16 and tf32.
 #pragma once
 
 #include <cstdint>
@@ -12,32 +10,6 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy global -> shared; src_bytes 0 writes 16 zero bytes (src is not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices (or 8x4 of 32-bit words: register i of lane l then holds
-// word l % 4 of row l / 4 of matrix i); lane l gives the address of row l % 8 of
-// matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // fp32 -> tf32 (10-bit mantissa), rounded to nearest with ties away from zero; the
@@ -52,26 +24,6 @@ __device__ __forceinline__ uint32_t cvt_tf32(float v) {
 __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
   big = cvt_tf32(v);
   small = cvt_tf32(v - __uint_as_float(big));
-}
-
-// d[16x8] += a[16x8] (row-major tf32) * b[8x8] (column-major tf32), fp32 sums.
-__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d[16x8] = a[16x8] (row-major tf32) * b[8x8] (column-major tf32), fp32, from zero.
-__device__ __forceinline__ void mma_tf32_1688_zero(float (&d)[4], const uint32_t (&a)[4],
-                                                   uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
 }
 
 // A shared-memory barrier of `count` arrivals a phase; then a fence, so that the
@@ -115,16 +67,26 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, uint
       : "memory");
 }
 
+// A 3-d box, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Orders this thread's generic-proxy writes to shared memory before the async proxy's
 // reads of it (wgmma's operands, written by ordinary stores).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// wgmma's shared-memory descriptor of a K-major bf16 tile in TMA's 128-byte swizzle:
-// rows of 128 bytes (64 values along K), eight rows a 1024-byte atom (the stride
-// between atoms, SBO), the tile on a 1024-byte boundary; a k16 step further along K
-// starts 32 bytes later.
+// wgmma's shared-memory descriptor of a K-major tile in TMA's 128-byte swizzle: rows
+// of 128 bytes (64 bf16 or 32 tf32 values along K), eight rows a 1024-byte atom (the
+// stride between atoms, SBO), the tile on a 1024-byte boundary; a k16 step of bf16,
+// or a k8 step of tf32, further along K starts 32 bytes later.
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
@@ -140,6 +102,7 @@ __device__ __forceinline__ void wgmma_wait0() {
 // Keeps the compiler from moving a register's reads or writes across the wgmma
 // instructions that own it.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // d[64 x 24] += a[64 x 16] * b[16 x 24], bf16 in, fp32 sums, both operands K-major in
 // shared memory; a warpgroup's instruction. Each warp holds 16 rows of d as three
@@ -152,6 +115,27 @@ __device__ __forceinline__ void wgmma_m64n24k16_bf16(float (&d)[12], uint64_t a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 48] (+)= a[64 x 8] * b[8 x 48], tf32 in, fp32 sums: a from registers (each
+// warp 16 rows, the fragment of mma.sync m16n8k8's A: a[0] row g col t, a[1] row g + 8
+// col t, a[2] row g col t + 4, a[3] row g + 8 col t + 4, for lane 4 g + t), b K-major in
+// shared memory by descriptor (tf32 takes no other layout); a warpgroup's instruction.
+// scale_d 0 ignores d's value (the sum starts from zero). Each warp holds 16 rows of d
+// as six m16n8 fragments (d[4 j .. 4 j + 3]: columns 8 j on). The registers of a are
+// read asynchronously: they stay unchanged until the wait.
+__device__ __forceinline__ void wgmma_m64n48k8_tf32(float (&d)[24], const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 }  // namespace hopper

@@ -34,10 +34,10 @@
 // channel adds the items in order and writes the block's partial to partials [B,
 // tiles, Cexp rounded up to 48] (f32 scratch from the caller; every B5 and V2-S width
 // is a multiple of 48); a second kernel (`squeeze_tiles_kernel`) then adds each
-// (image, channel)'s partials in tile order. A tile is a 16 x 15 output tile in fp32
-// and a strip x segment in bf16: at block 4's 380 x 228 x 240, batch 16, the bf16
-// scratch is 16 x 48 x 240 x 4 = 0.7 MB, where a separate mean moves 10 bytes a value
-// (the bf16 output read, an f32 copy written and read back): 3.3 GB there.
+// (image, channel)'s partials in tile order. A tile is a strip x segment: at block
+// 4's 380 x 228 x 240, batch 16, the scratch is 16 x 48 x 240 x 4 = 0.7 MB, where a
+// separate mean moves 10 bytes a value (the bf16 output read, an f32 copy written and
+// read back): 3.3 GB there.
 //
 // bf16 design. Its bound (above) is 2.5 ms a B5 forward at batch 16. What holds it
 // back is the work past the products and its latency: each output takes the JAX
@@ -101,52 +101,67 @@
 //   Three blocks an SM at K = 3 where their shared memory fits (blocks 4-7 and 14-19
 //   of B5: 80 registers), else two; 256 threads a block.
 //
-// fp32 design: 3xTF32 on the tensor cores. The tensor cores take fp32 only as tf32
-// (a 10-bit mantissa, ~3 decimal digits), which the port's float32 policy (TF32 off,
-// as the JAX package's fp32 path) forbids for a single product. Each operand v is
+// fp32 design: the bf16 path's strip walk, with the expand as 3xTF32 on wgmma. Its
+// bound (above) is 6.7 ms a B5 forward at batch 16. The tensor cores take fp32 only
+// as tf32 (a 10-bit mantissa, ~3 decimal digits), which the port's float32 policy (TF32
+// off, as the JAX package's fp32 path) forbids for a single product. Each operand v is
 // split as big = tf32(v) and small = tf32(v - big) (round to nearest), so v = big +
-// small to ~2^-22 |v|; each k8 step computes big*big, then small*big + big*small,
-// in mma.sync m16n8k8 (tf32 in, fp32 sums), and small*small (~2^-22) is dropped.
-// The tensor cores truncate as they accumulate, so each k8 step starts its own sum
-// from zero and joins the running sum by an fp32 add: summed in the tensor cores
-// over all of Cin, the truncation drifts by ~1e-5 relative at Cin 512 (measured on
-// the H100); this way the kernel is within ~4e-7 (1 + |x|) of float64, as float32
-// products are, where one tf32 pass is off by ~2e-4 to 4e-4 (tests/_mbconv_f64.py).
-// x is split as its fragments are loaded (by the two warps that share an m16 tile),
-// the weight as its fragments are loaded, in every warp and every block: three
-// instructions a value beside three MMAs, where a split once in the wrapper or the
-// tower's cached front weights would add a launch or a second weight tensor and
-// another C interface.
-// A block owns one image, a 16 x 15 output tile and 48 expanded channels:
-//   expand: M = the (16+K-1) x (15+K-1) halo positions (306 for K = 3, 380 for K =
-//     5: 20 and 24 m16 tiles), N = 48, K = Cin; 8 warps as 4 along M x 2 along N,
-//     each with every 4th m16 tile and 3 n8 tiles. x arrives as 16-byte cp.async
-//     copies, 16 input channels a stage (two k8 steps), three stages, two chunks in
-//     flight during the products; A fragments by ldmatrix (8 x 4 words; rows padded
-//     by 16 bytes, free of bank conflicts), B fragments by 32-bit loads from the
-//     row-major [Cin, Cexp] weight (rows padded to 56 words, free of conflicts).
-//     Out-of-image positions and channel tails are zero-filled, and a chunk runs only
-//     the k8 steps it has (Cin = 40 costs five).
-//   epilogue: BN1 from the sums into the fp32 expanded tile in shared memory (over
-//     the stages), exact zeros at out-of-image halo positions (SAME zeros for the
-//     depthwise; silu(0) = 0), then SiLU over the tile in a pass of its own, once the
-//     sums' registers are free (16-byte vectors; fast exponential and division).
-//   depthwise: one channel a thread, a register window sliding along 5 output
-//     columns, K*K fp32 weights in registers, BN2 + SiLU, stored from registers (a
-//     warp writes 32 neighbouring channels: whole 32-byte sectors). Each item's
-//     squeeze sum goes to 48 x 48 floats past the expanded tile, in the stages'
-//     space (9 KB; a static array would cost the second block an SM).
-//   Both BatchNorms are folded as the block loads them: scale mul, shift bias - mean
-//   * mul (fp32 keeps the fold: no rounding to match, and fewer live values).
-// 16 x 15 rather than 16 x 12 (the bf16 path's earlier tile): 29 columns (the 48 x 29
-// deep blocks) split into 2 tiles of 15 instead of 3 of 12, whose last is 5 wide; the halo recompute is
-// 20*16/240 = 1.33 (K = 3) and 24*16/240 = 1.6 (K = 5) with the m16 padding. The
-// shared memory (3 stages of 29-34 KB, or the 68-85 KB expanded tile) and 128
-// registers a thread allow two blocks an SM (8 x 15 tiles at three blocks an SM
-// were slower at the five B5 shapes timed: 40->240 k3, 64->384 k5, 176->1056 k5,
-// 304->1824 k5 and 512->3072 k3).
-// Widths that are not multiples of 4, or unaligned pointers, stage element by
-// element instead of the 16-byte copies.
+// small to ~2^-22 |v|; the expand sums big*big, small*big and big*small as wgmma
+// m64n48k8 products (tf32 in, fp32 sums), and small*small (~2^-22) is dropped. The
+// tensor cores truncate as they accumulate: summed in them over all of Cin, big*big
+// drifts by ~1e-5 relative at Cin 512 (2.77e-5 (1 + |x|) at the output, measured on the
+// H100, against a tolerance of 1e-5). So big*big is summed from zero over each
+// warpgroup's two k8 steps of a chunk and joins the running sum by an fp32 add, while
+// small*big and big*small, ~2^-11 of the sum, stay in the tensor cores' sum over all
+// of Cin, where their truncation is below fp32's rounding: within 3e-7 (1 + |x|) of
+// float64 at the precision tests' shapes (tests/_mbconv_f64.py). The design:
+//   the walk, as bf16: a block owns one image, one strip of output columns, a segment
+//     of output rows and 48 expanded channels (`tc::geometry`: the same strips and
+//     segments, so the same squeeze partials); each step expands the next rs input
+//     rows (64 positions) once, into a ring of K - 1 + rs fp32 rows in shared memory,
+//     then runs the depthwise for the output rows the ring completes.
+//   the weights, split once a call: `split_weights_kernel` writes both tf32 parts,
+//     K-major (the only layout wgmma takes for tf32 B), to the caller's scratch, from
+//     which TMA brings them in the 128-byte swizzle (48 rows of 128 bytes a part and
+//     32 input channels). Resident for the block's life where two blocks an SM still
+//     fit beside the ring (12 KB a 32 input channels: at the B5 shapes Cin <= 128 at K
+//     = 3, 40 and 64 at K = 5), else streamed: each chunk's two parts come through the
+//     input ring with its x. Streaming was chosen over a 24-channel tile, which keeps
+//     60-96 KB of weights at Cin 304-512 (one or two blocks of four warps an SM) and
+//     doubles the reads of x: streaming keeps two blocks of eight warps an SM at every
+//     B5 and V2-S shape. Measured against the weights resident at one block an SM,
+//     streaming is faster at every shape where it is used (PERF.md).
+//   inputs by TMA: thread 0 keeps the ring's slots (2-4, the most that keep the
+//     blocks an SM) in flight, each a 4-d box of x (rs x 64 positions x 32 input
+//     channels, 128 bytes a position) in the 128-byte swizzle, zeros outside the image
+//     and past Cin, completing on an mbarrier. Cin not a multiple of 4 or an unaligned
+//     x (TMA refuses the strides) stage the same layout element by element.
+//   expand: each of the two warpgroups takes two of a chunk's four k8 steps on all 48
+//     channels (wgmma m64n48k8: at N = 24 a warpgroup, each taking every k8 step, the
+//     forward was 4% slower). Each warp reads its A fragments from the slot and splits
+//     them in registers: every x value is split once a block. A goes to wgmma from
+//     registers, B (both weight parts) from shared memory by descriptor; x's small
+//     part is not written to shared memory, where 8 KB more a slot would cost the
+//     second block an SM at K = 5 (the ring alone is 60 KB there). The weights' k8
+//     order puts each 8-channel group's even channels first, so a thread's A fragment
+//     of a row is two neighbouring channels: one 8-byte load. After the step's last
+//     chunk the warpgroups add each other's sums through that chunk's slot, and
+//     warpgroup nh keeps channels 24 nh .. 24 nh + 23 (own + other: the same sum in
+//     both, so the order is fixed).
+//   epilogue: BN1 and the SiLU from those sums in one pass into the ring.
+//   depthwise: as bf16 (channel pairs, a row, 6 output columns an item, sums over dy,
+//     then dx, from zero), K*K fp32 FMAs, BN2 and the SiLU, float2 stores (a warp
+//     writes 192 contiguous bytes); output offsets are 64-bit, so one launch takes
+//     any batch the grid does. The squeeze as bf16's, over the values written.
+//   Both BatchNorms are folded as the block loads them: scale mul, shift bias - mean *
+//   mul (fp32 keeps the fold: no rounding to match, and fewer live values); the SiLU
+//   is `silu_fast`. Two blocks an SM at every B5 and V2-S shape; 256 threads a block.
+// What holds it back (variants timed on the H100, PERF.md): the products are ~10 ms a
+// forward, near two thirds of the tensor cores' rate; the rest is latency: each
+// chunk's group is waited for before the next is issued, the TMA waits (~5 ms), and a
+// walk whose non-product work alone is about the bf16 kernel's time. Issuing a chunk's
+// group before splitting the next one's fragments spilled at the 128-register cap and
+// was slower; so was a wgmma group a half chunk.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -671,64 +686,203 @@ int launch_bf16(const void* x, const void* w_exp, const Bn& bn, const void* w_dw
 
 }  // namespace tc
 
-// ---------------------------------------------------------------- fp32, 3xTF32 tensor cores
+// ---------------------------------------------------------------- fp32, 3xTF32 on wgmma
 namespace f32 {
 
-constexpr int TH = 16;            // output rows per block
-constexpr int TW = 15;            // output columns per block
-constexpr int SEG = 5;            // output columns of one depthwise window
 constexpr int CT = CHANNEL_TILE;  // expanded channels per block
-constexpr int NT = CT / 8;        // n8 tiles of the expand
-constexpr int WARPS_M = 4;        // warps along the halo positions
-constexpr int WARPS_N = 2;        // warps along the channels
-constexpr int NPW = NT / WARPS_N;  // n8 tiles of a warp
-constexpr int KC = 16;            // input channels per stage (two k8 steps)
-constexpr int STAGES = 3;
-constexpr int THREADS = WARPS_M * WARPS_N * 32;
-constexpr int XS = KC + 4;        // input row stride (floats): 80 bytes
-constexpr int WS = CT + 8;        // weight row stride: 224 bytes
-constexpr int ES = CT + 8;        // expanded tile row stride
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int KCH = 32;           // input channels of a chunk: 128 bytes a position
+constexpr int MROWS = tc::MROWS;  // positions of a step: four m16 tiles
+constexpr int MAX_SLOTS = 4;      // input chunks in the ring, at most
+constexpr int X_BYTES = MROWS * KCH * 4;  // a chunk of x: 8 KB
+constexpr int W_PART = CT * 128;  // one tf32 part of a chunk's weights: 48 rows of 32 K values
+constexpr int W_BYTES = 2 * W_PART;  // big, then small
+constexpr int XCH_BYTES = 2 * 12 * 128 * 4;  // the warpgroups' exchange of their sums
+constexpr int ES = CT;            // expanded row stride (floats)
+constexpr int PAIRS = CT / 2;     // channel pairs of a depthwise item
+constexpr int SEG = tc::SEG;      // output columns of a depthwise item
+constexpr int IPT = tc::IPT;      // depthwise items a thread, at most
+// (blocks an SM, resident weights) in the order a launch tries them (`launch_f32`)
+constexpr int PREFER[4][2] = {{2, 1}, {2, 0}, {1, 1}, {1, 0}};
+
+// A slot's bytes: x, then the chunk's weights where they stream; at least the
+// warpgroups' exchange of their sums at the end of a step.
+__host__ __device__ inline int slot_size(int resident) {
+  return resident ? (X_BYTES > XCH_BYTES ? X_BYTES : XCH_BYTES) : X_BYTES + W_BYTES;
+}
+
+// The columns of a ring row: the strip's sw + K - 1 and the last depthwise item's
+// window past them (read, never used).
+__host__ __device__ inline int ring_cols(int sw, int K) { return (sw + SEG - 1) / SEG * SEG + K - 1; }
+
+// w_exp [Cin, Cexp] -> wt [2][cpad][kpad], the big and the small tf32 part of each
+// weight (`split_tf32`), K-major (the layout wgmma takes for tf32), zeros past Cin and
+// Cexp; within each 8-channel group the even channels first, then the odd ones (k8
+// position p holds channel 2p for p < 4, 2 (p - 4) + 1 after), so that the A fragment
+// a thread gives wgmma for a k8 step (positions t and t + 4 of rows g and g + 8) is
+// two neighbouring channels of x: one 8-byte load a row. A 32 x 32 tile a block
+// through shared memory: reads along Cexp, writes along Cin.
+__global__ void split_weights_kernel(const float* __restrict__ w, float* __restrict__ wt, int cin,
+                                     int cexp, int cpad, int kpad) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int k = k0 + i, n = n0 + tx;
+    tile[i][tx] = k < cin && n < cexp ? w[static_cast<int64_t>(k) * cexp + n] : 0.0f;
+  }
+  __syncthreads();
+  const int q = tx & 7, kk = (tx & ~7) + (q < 4 ? 2 * q : 2 * q - 7);
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n0 + i;
+    if (n >= cpad) continue;
+    uint32_t big, small;
+    hopper::split_tf32(tile[kk][i], big, small);
+    wt[static_cast<int64_t>(n) * kpad + k0 + tx] = __uint_as_float(big);
+    wt[(static_cast<int64_t>(cpad) + n) * kpad + k0 + tx] = __uint_as_float(small);
+  }
+}
+
+// Warpgroup nh's share of a chunk, its k8 steps 2 nh and 2 nh + 1 (of ksteps), on
+// all 48 channels: the warp's A fragments (rows 16 mt + g and + 8 at `x_row`: channels
+// 8 ks + 2 t and + 1, 8 bytes at 16-byte column (2 ks + t / 2) ^ g of the swizzled
+// 128-byte row) loaded and split into big and small tf32 parts, then big x big summed
+// from zero into `run` and small x big and big x small into acc_s, the weights' two
+// parts at b_addr (big) and b_addr + W_PART (small); one wgmma group, waited for.
+__device__ __forceinline__ void expand_pair(const unsigned char* x_row, int nh, int t, int g,
+                                            bool has_rows, int ksteps, uint32_t b_addr,
+                                            float (&run)[24], float (&acc_s)[24]) {
+  uint32_t ab[2][4], as[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int ks = 2 * nh + j;
+    float2 lo = make_float2(0.0f, 0.0f), hi = lo;
+    if (has_rows && ks < ksteps) {
+      const int col = ((2 * ks + (t >> 1)) ^ g) << 4;
+      lo = *reinterpret_cast<const float2*>(x_row + col);
+      hi = *reinterpret_cast<const float2*>(x_row + 8 * 128 + col);
+    }
+    hopper::split_tf32(lo.x, ab[j][0], as[j][0]);
+    hopper::split_tf32(hi.x, ab[j][1], as[j][1]);
+    hopper::split_tf32(lo.y, ab[j][2], as[j][2]);
+    hopper::split_tf32(hi.y, ab[j][3], as[j][3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 24; ++r) {
+    hopper::fence_operand(run[r]);
+    hopper::fence_operand(acc_s[r]);
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int ks = 2 * nh + j;
+    if (ks < ksteps) {
+      const uint64_t big = hopper::wgmma_desc_sw128(b_addr + ks * 32);
+      const uint64_t small = hopper::wgmma_desc_sw128(b_addr + W_PART + ks * 32);
+      hopper::wgmma_m64n48k8_tf32(run, ab[j], big, j);
+      hopper::wgmma_m64n48k8_tf32(acc_s, as[j], big, 1);
+      hopper::wgmma_m64n48k8_tf32(acc_s, ab[j], small, 1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait0();
+#pragma unroll
+  for (int r = 0; r < 24; ++r) {
+    hopper::fence_operand(run[r]);
+    hopper::fence_operand(acc_s[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hopper::fence_operand(ab[j][q]);
+      hopper::fence_operand(as[j][q]);
+    }
+}
 
 template <int K>
-struct Geometry {
-  static constexpr int WP = TW + K - 1;
-  static constexpr int NP = (TH + K - 1) * WP;      // halo positions
-  static constexpr int MT = (NP + 15) / 16;         // m16 tiles of the expand
-  static constexpr int MPW = (MT + WARPS_M - 1) / WARPS_M;
-  static constexpr int ROWS = MT * 16;
-  static constexpr int STAGE = ROWS * XS + KC * WS;  // floats
-  static constexpr int ITEMS_TILE = TH * (TW / SEG);  // depthwise items of a channel
-  static constexpr int SMEM_A = STAGES * STAGE * 4;
-  // the expanded tile, then the items' squeeze sums (within the stages' space)
-  static constexpr int SMEM_B = (NP * ES + ITEMS_TILE * CT) * 4;
-  static constexpr int SMEM = SMEM_A > SMEM_B ? SMEM_A : SMEM_B;
-};
-
-template <int K>
-__global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: one's copies, another's math
-expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_exp, Bn bn,
-                     const float* __restrict__ w_dw, float* __restrict__ out,
-                     float* __restrict__ partials, int H, int W, int cin, int cexp, int ctiles,
-                     int tiles_w, int vec) {
-  using G = Geometry<K>;
+__global__ void __launch_bounds__(THREADS, 2)
+expand_dw_f32_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                     const float* __restrict__ x, Bn bn, const float* __restrict__ w_dw,
+                     float* __restrict__ out, float* __restrict__ partials, int H, int W, int cin,
+                     int cexp, int sw, int sh, int n_s, int ncp, int rs, int slots, int resident,
+                     int tma, int ovec) {
   constexpr int PAD = (K - 1) / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_bn[4][CT];                      // BN1 scale, shift, BN2 scale, shift
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float s_bn[4][CT];  // BN1 scale, shift, then BN2's (folded)
   __shared__ __align__(8) float s_wdw[K * K][CT];
-  float* const sm = reinterpret_cast<float*>(smem);
+  __shared__ __align__(8) uint64_t s_bar[MAX_SLOTS + 1];  // the slots', then the weights'
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  // channel tiles run fastest, so the blocks that share a halo tile share it in L2
-  const int c0 = (blockIdx.x % ctiles) * CT;
-  const int tile = blockIdx.x / ctiles;
-  const int y0 = (tile / tiles_w) * TH;
-  const int x0 = (tile % tiles_w) * TW;
-  const int64_t img = blockIdx.y;
-  const float* const ximg = x + img * H * W * cin;
+  const int c0 = blockIdx.x * CT;
+  const int x0 = (blockIdx.y % n_s) * sw, y0 = (blockIdx.y / n_s) * sh;
+  const int64_t img = blockIdx.z;
+  float* const part =
+      partials + ((img * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * CT;
+  if (x0 >= W || y0 >= H) {  // an empty strip or segment (not at B5 shapes)
+    if (tid < CT) part[tid] = 0.0f;
+    return;
+  }
+  const int swt = min(sw, W - x0), sht = min(sh, H - y0);
+  const int wr = ring_cols(sw, K);  // a ring row: expanded column x0 - PAD + j at j
+  const int R = K - 1 + rs;      // expanded rows in the ring
+  const int xs = max(0, x0 - PAD);  // the first in-image column of the window
+  const int nc = min(W, x0 + swt + PAD) - xs;  // in-image columns the expand computes
+  const int mts = rs * ncp / 16;  // m16 tiles of a step
+  const int nch = max(1, (cin + KCH - 1) / KCH);  // one barrier a chunk, also at Cin 0
+  const int nsteps = (sht + K - 1 + rs - 1) / rs;
+  const int total = nsteps * nch;
+  const int nseg = (swt + SEG - 1) / SEG;
+  const int items = rs * nseg * PAIRS;
+  const int ybase = y0 - PAD;    // the image row of the walk's row 0
+  // x, then streamed weights; at least the warpgroups' exchange
+  const int slot_bytes = slot_size(resident);
+  const bool bars = tma || !resident;  // a slot completes on its barrier
 
-  // each BatchNorm folded: scale mul, shift bias - mean * mul (the plain version's
-  // float32 arithmetic, each op rounded)
+  // dynamic shared memory from a 1024-byte boundary (the 128-byte swizzle of TMA and
+  // wgmma): the input ring, the resident weights, the expanded rows
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  unsigned char* const in_ring = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
+  unsigned char* const s_w = in_ring + slots * slot_bytes;  // [nch][big, small][CT][32] K-major
+  float* const ring = reinterpret_cast<float*>(s_w + (resident ? nch * W_BYTES : 0));  // [R][wr][ES]
+  const uint32_t in_addr = hopper::smem_addr(in_ring);
+
+  // chunk i of the walk (step i / nch, input channels (i % nch) * KCH on) into slot
+  // i % slots: one thread's TMA boxes (x: KCH channels, ncp columns from xs, rs rows,
+  // one image, zeros outside the image and past Cin; streamed weights: both parts of
+  // the chunk's KCH x CT)
+  auto fetch = [&](int i) {
+    const int s = i / nch, ch = i - s * nch, slot = i % slots;
+    const uint32_t dst = in_addr + slot * slot_bytes, bar = hopper::smem_addr(&s_bar[slot]);
+    hopper::mbar_arrive_expect_tx(bar, (tma ? rs * ncp * KCH * 4 : 0) + (resident ? 0 : W_BYTES));
+    if (tma)
+      hopper::tma_load_4d(dst, &xmap, bar, ch * KCH, xs, ybase + s * rs, static_cast<int>(img));
+    if (!resident)
+      for (int p = 0; p < 2; ++p)
+        hopper::tma_load_3d(dst + X_BYTES + p * W_PART, &wmap, bar, ch * KCH, c0, p);
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= MAX_SLOTS; ++s) hopper::mbar_init(hopper::smem_addr(&s_bar[s]), 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (resident) {  // every chunk's weights, once for the block's life
+      const uint32_t bar = hopper::smem_addr(&s_bar[MAX_SLOTS]);
+      hopper::mbar_arrive_expect_tx(bar, nch * W_BYTES);
+      for (int ch = 0; ch < nch; ++ch)
+        for (int p = 0; p < 2; ++p)
+          hopper::tma_load_3d(hopper::smem_addr(s_w + ch * W_BYTES + p * W_PART), &wmap, bar,
+                              ch * KCH, c0, p);
+    }
+    if (bars)
+      for (int i = 0; i < slots && i < total; ++i) fetch(i);
+  }
+
+  // resident for the block's life: both BatchNorms folded (scale mul, shift bias - mean
+  // * mul, each op rounded: the plain version's float32 arithmetic) and the depthwise
+  // weights (zeros past Cexp); the ring starts at zero, which stays in the columns
+  // outside the image (SAME zeros for the depthwise)
   for (int i = tid; i < 2 * CT; i += THREADS) {
     const int n = i / CT, c = c0 + i % CT;
     float scale = 0.0f, shift = 0.0f;
@@ -743,237 +897,290 @@ expand_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_ex
     const int t = i / CT, c = c0 + i % CT;
     s_wdw[t][i % CT] = c < cexp ? w_dw[(int64_t)t * cexp + c] : 0.0f;
   }
+  for (int i = tid; i < R * wr * (ES / 4); i += THREADS)
+    reinterpret_cast<float4*>(ring)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
 
-  // one stage: the halo rows' KC input channels and the KC x CT weight block,
-  // zero-filled outside the image and past the channel tails
-  auto load_stage = [&](int s, int ci0) {
-    float* const xs = sm + s * G::STAGE;
-    float* const ws = xs + G::ROWS * XS;
-    if (vec) {
+  // the expand: warpgroup nh's wgmma computes k8 steps 2 nh and 2 nh + 1 of each
+  // chunk for all 48 channels of the step's 64 positions, and it keeps channels 24 nh
+  // .. 24 nh + 23 for the epilogue; its warp mt holds rows 16 mt .. 16 mt + 15 (the
+  // epilogue's m16 tile), whose positions exist when mt < mts. A thread's A fragments
+  // start at a_row in the slot (`expand_pair`; the row's index modulo 8 is g)
+  const int mt = warp & 3, nh = warp >> 2;
+  const bool has_rows = mt < mts;
+  const int g = lane >> 2, t = lane & 3;
+  const int a_row = (mt * 16 + g) * 128 + (t & 1) * 8;
+  // the epilogue's two positions of each thread, and its depthwise items: the same
+  // in every step
+  int ep_rr[2], ep_col[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = mt * 16 + g + h * 8, rr = p / ncp, cc = p - rr * ncp;
+    ep_rr[h] = rr;
+    ep_col[h] = cc < nc ? cc + xs - x0 + PAD : -1;  // -1: past the in-image columns
+  }
+  int it_rr[IPT], it_col0[IPT];
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    const int rest = (tid + k * THREADS) / PAIRS;
+    it_rr[k] = rest / nseg;
+    it_col0[k] = (rest - it_rr[k] * nseg) * SEG;
+  }
+  float sq[IPT][2];
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) sq[k][0] = sq[k][1] = 0.0f;
+  const float* const ximg = x + img * H * W * cin;
+  if (resident) hopper::mbar_wait(hopper::smem_addr(&s_bar[MAX_SLOTS]), 0);
+
+  int head = 0;  // the ring row of the step's first row: (s * rs) % R
 #pragma unroll 1
-      for (int i = tid; i < G::NP * (KC / 4); i += THREADS) {
-        const int p = i / (KC / 4), seg = i % (KC / 4);
-        const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP, ci = ci0 + seg * 4;
-        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci < cin;
-        const float* src = ok ? ximg + ((int64_t)gy * W + gx) * cin + ci : x;
-        hopper::cp_async16(hopper::smem_addr(xs + p * XS + seg * 4), src, ok ? 16 : 0);
+  for (int s = 0; s < nsteps; ++s) {
+    // ---- expand the step's rs input rows, chunk by chunk, as 3xTF32 on the tensor
+    // cores: each warpgroup takes two of a chunk's four k8 steps on all 48 channels
+    // (`expand_pair`), its big x big sums added to acc in fp32; then the two
+    // warpgroups' sums of each channel are added through the last chunk's slot, and
+    // warpgroup nh keeps channels 24 nh .. 24 nh + 23
+    float acc[24], acc_s[24], run[24];
+#pragma unroll
+    for (int r = 0; r < 24; ++r) acc[r] = acc_s[r] = 0.0f;
+    unsigned char* xin = in_ring;
+#pragma unroll 1
+    for (int ch = 0; ch < nch; ++ch) {
+      const int i = s * nch + ch, slot = i % slots;
+      xin = in_ring + slot * slot_bytes;
+      if (bars) hopper::mbar_wait(hopper::smem_addr(&s_bar[slot]), (i / slots) & 1);
+      if (!tma) {  // element by element, into the layout TMA's swizzle gives
+#pragma unroll 1
+        for (int e = tid; e < rs * ncp * KCH; e += THREADS) {
+          const int p = e / KCH, cl = e % KCH, rr = p / ncp;
+          const int gy = ybase + s * rs + rr, gx = xs + p - rr * ncp, ci = ch * KCH + cl;
+          const bool ok = gy >= 0 && gy < H && gx < W && ci < cin;
+          *reinterpret_cast<float*>(xin + p * 128 + (((cl >> 2) ^ (p & 7)) << 4) + (cl & 3) * 4) =
+              ok ? ximg[((int64_t)gy * W + gx) * cin + ci] : 0.0f;
+        }
+        __syncthreads();
       }
-#pragma unroll 1
-      for (int i = tid; i < KC * (CT / 4); i += THREADS) {
-        const int r = i / (CT / 4), seg = i % (CT / 4);
-        const int ci = ci0 + r, c = c0 + seg * 4;
-        const bool ok = ci < cin && c < cexp;
-        const float* src = ok ? w_exp + (int64_t)ci * cexp + c : w_exp;
-        hopper::cp_async16(hopper::smem_addr(ws + r * WS + seg * 4), src, ok ? 16 : 0);
+      const int ksteps = (min(KCH, cin - ch * KCH) + 7) / 8;
+      expand_pair(xin + a_row, nh, t, g, has_rows, ksteps,
+                  hopper::smem_addr(resident ? s_w + ch * W_BYTES : xin + X_BYTES), run, acc_s);
+      if (2 * nh < ksteps)
+#pragma unroll
+        for (int r = 0; r < 24; ++r) acc[r] += run[r];
+      __syncthreads();  // every warp is done with the slot
+      // the step's last slot carries the warpgroups' sums first: refilled after them
+      if (bars && tid == 0 && ch + 1 < nch && i + slots < total) fetch(i + slots);
+    }
+    // the other warpgroup's channels through the slot ([warpgroup][12][128] floats,
+    // the partner thread's fragment), then own + other (the same sum both ways)
+    float own[12];
+    {
+      float* const xch = reinterpret_cast<float*>(xin);
+      const int wt = tid & 127;
+#pragma unroll
+      for (int r = 0; r < 12; ++r) {
+        own[r] = (nh ? acc[12 + r] : acc[r]) + (nh ? acc_s[12 + r] : acc_s[r]);
+        xch[(nh * 12 + r) * 128 + wt] = (nh ? acc[r] : acc[12 + r]) + (nh ? acc_s[r] : acc_s[12 + r]);
       }
-    } else {
-#pragma unroll 1
-      for (int i = tid; i < G::NP * KC; i += THREADS) {
-        const int p = i / KC, ci = ci0 + i % KC;
-        const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP;
-        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci < cin;
-        xs[p * XS + i % KC] = ok ? ximg[((int64_t)gy * W + gx) * cin + ci] : 0.0f;
-      }
-#pragma unroll 1
-      for (int i = tid; i < KC * CT; i += THREADS) {
-        const int ci = ci0 + i / CT, c = c0 + i % CT;
-        ws[(i / CT) * WS + i % CT] = ci < cin && c < cexp ? w_exp[(int64_t)ci * cexp + c] : 0.0f;
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 12; ++r) own[r] += xch[((1 - nh) * 12 + r) * 128 + wt];
+    }
+
+    // ---- BN1 + SiLU into the ring; zeros for rows outside the image
+    if (has_rows) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (ep_col[h] < 0) continue;
+        const int gy = ybase + s * rs + ep_rr[h];
+        const bool inside = gy >= 0 && gy < H;
+        const int sl = head + ep_rr[h] < R ? head + ep_rr[h] : head + ep_rr[h] - R;
+        float* const dst = ring + (sl * wr + ep_col[h]) * ES;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int c = (nh * 3 + j) * 8 + 2 * t, r = 4 * j + 2 * h;
+          const float v0 = silu_fast(fmaf(own[r], s_bn[0][c], s_bn[1][c]));
+          const float v1 = silu_fast(fmaf(own[r + 1], s_bn[0][c + 1], s_bn[1][c + 1]));
+          *reinterpret_cast<float2*>(dst + c) = inside ? make_float2(v0, v1) : make_float2(0.0f, 0.0f);
+        }
       }
     }
-  };
+    __syncthreads();  // the ring rows written; every warp is done with the last slot
+    if (bars && tid == 0 && (s + 1) * nch - 1 + slots < total) fetch((s + 1) * nch - 1 + slots);
 
-  // ---- expand on the tensor cores as 3xTF32, STAGES - 1 chunks of cp.async in flight
-  float acc[G::MPW][NPW][4];
+    // ---- depthwise K x K for the output rows the ring now completes: an item is a
+    // channel pair, one of the step's rows and SEG columns; its sums go over dy, then
+    // dx, from zero, a window of K columns sliding along each ring row; BN2 + SiLU,
+    // stored as float2 (a warp writes 192 contiguous bytes); the item's squeeze sums
+    // stay in registers for the whole walk
 #pragma unroll
-  for (int mi = 0; mi < G::MPW; ++mi)
+    for (int k = 0; k < IPT; ++k) {
+      const int item = tid + k * THREADS;
+      if (item >= items) continue;
+      const int c = (item % PAIRS) * 2, col0 = it_col0[k];
+      const int yl = s * rs + it_rr[k] - (K - 1);  // the output row, from y0
+      if (yl < 0 || yl >= sht) continue;
+      int sl = head + it_rr[k] + R - (K - 1);  // the ring row of output row yl's dy = 0
+      sl -= sl >= R ? R : 0;
+      sl -= sl >= R ? R : 0;
+      float2 a[SEG];
 #pragma unroll
-    for (int j = 0; j < NPW; ++j)
+      for (int o = 0; o < SEG; ++o) a[o] = make_float2(0.0f, 0.0f);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.0f;
-
-  const int g = lane >> 2, t4 = lane & 3;
-  // one commit group per chunk (empty past the last), so chunk ch is complete once at
-  // most STAGES - 2 newer groups are pending
-  const int nchunks = (cin + KC - 1) / KC;
+      for (int dy = 0; dy < K; ++dy) {
+        const float* const src = ring + (sl * wr + col0) * ES + c;
+        sl = sl + 1 == R ? 0 : sl + 1;
+        float2 wk[K], win[K];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load_stage(s, s * KC);
-    hopper::cp_async_commit();
-  }
-  for (int ch = 0; ch < nchunks; ++ch) {
-    hopper::cp_async_wait<STAGES - 2>();
-    // chunk ch is complete for every thread, and every warp is done with chunk ch - 1,
-    // whose stage the next load refills
-    __syncthreads();
-    const int next = ch + STAGES - 1;
-    if (next < nchunks) load_stage(next % STAGES, next * KC);
-    hopper::cp_async_commit();
-    const float* const xs = sm + (ch % STAGES) * G::STAGE;
-    const float* const ws = xs + G::ROWS * XS;
-    const int ksteps = (min(KC, cin - ch * KC) + 7) / 8;
-#pragma unroll
-    for (int ks = 0; ks < KC / 8; ++ks) {
-      if (ks < ksteps) {
-        const int kk = ks * 8;
-        uint32_t bh[NPW][2], bl[NPW][2];
-#pragma unroll
-        for (int j = 0; j < NPW; ++j) {
-          const float* const wcol = ws + (kk + t4) * WS + (wn * NPW + j) * 8 + g;
-          hopper::split_tf32(wcol[0], bh[j][0], bl[j][0]);
-          hopper::split_tf32(wcol[4 * WS], bh[j][1], bl[j][1]);
+        for (int dx = 0; dx < K; ++dx) {
+          wk[dx] = *reinterpret_cast<const float2*>(&s_wdw[dy * K + dx][c]);
+          win[dx] = make_float2(0.0f, 0.0f);
         }
 #pragma unroll
-        for (int mi = 0; mi < G::MPW; ++mi) {
-          const int mt = wm + mi * WARPS_M;
-          if (mt < G::MT) {
-            uint32_t a[4], ah[4], al[4];
-            hopper::ldmatrix_x4(
-                a, hopper::smem_addr(xs + (mt * 16 + (lane & 15)) * XS + kk + (lane >> 4) * 4));
+        for (int j = 0; j < SEG + K - 1; ++j) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) hopper::split_tf32(__uint_as_float(a[q]), ah[q], al[q]);
-            // big x big, then the small products into this k8 step's own sum, which joins
-            // the running sum by an fp32 add (the tensor cores truncate as they
-            // accumulate: over all of Cin in their sums that drifts by ~1e-5 at Cin 512);
-            // small x small (~2^-22) is dropped
-            float part[NPW][4];
+          for (int dx = 0; dx < K - 1; ++dx) win[dx] = win[dx + 1];
+          win[K - 1] = *reinterpret_cast<const float2*>(src + j * ES);
+          if (j >= K - 1) {
 #pragma unroll
-            for (int j = 0; j < NPW; ++j) hopper::mma_tf32_1688_zero(part[j], ah, bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < NPW; ++j) hopper::mma_tf32_1688(part[j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < NPW; ++j) hopper::mma_tf32_1688(part[j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-            for (int j = 0; j < NPW; ++j)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) acc[mi][j][q] += part[j][q];
+            for (int dx = 0; dx < K; ++dx) {
+              a[j - (K - 1)].x = fmaf(win[dx].x, wk[dx].x, a[j - (K - 1)].x);
+              a[j - (K - 1)].y = fmaf(win[dx].y, wk[dx].y, a[j - (K - 1)].y);
+            }
           }
         }
       }
-    }
-  }
-  __syncthreads();  // every warp is done with the stages, which the expanded tile overwrites
-
-  // ---- BN1, then SiLU, SAME zeros outside the image, the fp32 expanded tile over the
-  // stages. BN1 is applied from the sums and zeros written outside the image
-  // (silu(0) = 0); the SiLUs follow in a pass of their own, once the sums' registers
-  // are free
-  float* const es = sm;  // [NP][ES]
+      const float sc0 = s_bn[2][c], sc1 = s_bn[2][c + 1], sh0 = s_bn[3][c], sh1 = s_bn[3][c + 1];
+      const bool store = c0 + c < cexp;
+      float* const orow = out + ((img * H + y0 + yl) * W + x0 + col0) * cexp + c0 + c;
+      float row0 = 0.0f, row1 = 0.0f;  // this row's sums, then added to the walk's
 #pragma unroll
-  for (int mi = 0; mi < G::MPW; ++mi) {
-    const int mt = wm + mi * WARPS_M;
-    if (mt >= G::MT) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = mt * 16 + g + h * 8;
-      if (p >= G::NP) continue;
-      const int gy = y0 - PAD + p / G::WP, gx = x0 - PAD + p % G::WP;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int j = 0; j < NPW; ++j) {
-        const int c = (wn * NPW + j) * 8 + t4 * 2;
-        const float v0 = fmaf(acc[mi][j][2 * h], s_bn[0][c], s_bn[1][c]);
-        const float v1 = fmaf(acc[mi][j][2 * h + 1], s_bn[0][c + 1], s_bn[1][c + 1]);
-        *reinterpret_cast<float2*>(es + p * ES + c) =
-            inside ? make_float2(v0, v1) : make_float2(0.0f, 0.0f);
+      for (int o = 0; o < SEG; ++o) {
+        if (col0 + o < swt) {
+          const float v0 = silu_fast(fmaf(a[o].x, sc0, sh0));
+          const float v1 = silu_fast(fmaf(a[o].y, sc1, sh1));
+          if (store) {
+            float* const dst = orow + (int64_t)o * cexp;
+            if (ovec) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (c0 + c + 1 < cexp) dst[1] = v1;
+            }
+          }
+          row0 += v0;
+          row1 += v1;
+        }
       }
+      sq[k][0] += row0;
+      sq[k][1] += row1;
+    }
+    head = head + rs < R ? head + rs : head + rs - R;
+  }
+
+  // ---- the block's squeeze partial: the items' sums, then one thread a channel adds
+  // them in order (row of the step, then column segment); the input ring is free
+  __syncthreads();
+  float* const s_sq = reinterpret_cast<float*>(in_ring);  // [items][2]
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    const int item = tid + k * THREADS;
+    if (item < items) {
+      s_sq[2 * item] = sq[k][0];
+      s_sq[2 * item + 1] = sq[k][1];
     }
   }
   __syncthreads();
-  for (int i = tid; i < G::NP * (CT / 4); i += THREADS) {
-    float4* const e4 = reinterpret_cast<float4*>(es + (i / (CT / 4)) * ES) + i % (CT / 4);
-    const float4 v = *e4;
-    *e4 = make_float4(silu_fast(v.x), silu_fast(v.y), silu_fast(v.z), silu_fast(v.w));
-  }
-  __syncthreads();
-
-  // ---- depthwise K x K, one channel a thread (a warp reads 32 neighbouring channels),
-  // a window sliding along SEG columns, BN2 + SiLU, stored from registers (a warp
-  // writes whole 32-byte sectors); a channel a thread keeps the K = 5 window and
-  // weights in 50 registers. Each item sums its outputs (the squeeze) in column order
-  // in a register; the output offset is 32-bit (the caller keeps B H W Cexp under
-  // 2^31), which leaves the accumulator room under the 128-register cap at K = 5
-  float* const s_sq = sm + G::NP * ES;  // [ITEMS_TILE][CT]
-  constexpr int ITEMS = CT * G::ITEMS_TILE;
-  for (int it = tid; it < ITEMS; it += THREADS) {
-    const int c = it % CT, rest = it / CT;
-    const int r = rest / (TW / SEG), col0 = (rest % (TW / SEG)) * SEG;
-    const int gy = y0 + r;
-    if (gy >= H || x0 + col0 >= W || c0 + c >= cexp) {
-      s_sq[it] = 0.0f;  // it = rest * CT + c: the item's slot, [ITEMS_TILE][CT]
-      continue;
-    }
-    float sq = 0.0f;
-    float wk[K * K];
-#pragma unroll
-    for (int t = 0; t < K * K; ++t) wk[t] = s_wdw[t][c];
-    const float sc = s_bn[2][c], bi = s_bn[3][c];
-    const int orow = ((static_cast<int>(img) * H + gy) * W + x0 + col0) * cexp + c0 + c;
-    float win[K][K];
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) win[dy][dx] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < SEG + K - 1; ++j) {
-#pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < K - 1; ++dx) win[dy][dx] = win[dy][dx + 1];
-        win[dy][K - 1] = es[((r + dy) * G::WP + col0 + j) * ES + c];
-      }
-      const int col = j - (K - 1);
-      if (col >= 0 && x0 + col0 + col < W) {
-        float a = 0.0f;
-#pragma unroll
-        for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx) a = fmaf(win[dy][dx], wk[dy * K + dx], a);
-        const float v = silu_fast(fmaf(a, sc, bi));
-        out[orow + col * cexp] = v;
-        sq += v;
-      }
-    }
-    s_sq[it] = sq;
-  }
-  __syncthreads();
-
-  // ---- the tile's squeeze partial: one thread a channel adds the items in order; the
-  // index comes from the block's coordinates alone (no value kept live through the
-  // expand for it: at the 128-register cap that spills)
   if (tid < CT) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int i = 0; i < G::ITEMS_TILE; ++i) s += s_sq[i * CT + tid];
-    partials[(static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * CT + tid] = s;
+    float sum = 0.0f;
+#pragma unroll 1
+    for (int rest = 0; rest < rs * nseg; ++rest) sum += s_sq[2 * (rest * PAIRS + tid / 2) + (tid & 1)];
+    part[tid] = sum;
   }
+}
+
+// Static shared memory of the kernel for K (the arrays above).
+constexpr int static_smem(int K) { return 4 * CT * 4 + K * K * CT * 4 + (MAX_SLOTS + 1) * 8; }
+
+// The prepared weights' floats (`split_weights_kernel`): two parts of [cpad][kpad].
+inline int64_t weight_floats(int cin, int cexp) {
+  return 2ll * ((cexp + CT - 1) / CT * CT) * (std::max(1, (cin + KCH - 1) / KCH) * KCH);
 }
 
 template <int K>
 int launch_f32(const void* x, const void* w_exp, const Bn& bn, const void* w_dw, void* out,
-               void* partials, int batch, int H, int W, int cin, int cexp, cudaStream_t stream) {
-  using G = Geometry<K>;
-  auto kernel = expand_dw_f32_kernel<K>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         G::SMEM);
+               void* partials, void* wprep, int batch, int H, int W, int cin, int cexp,
+               cudaStream_t stream) {
+  const tc::Geo g = tc::geometry(H, W, K);
+  auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
+  const int nch = std::max(1, (cin + KCH - 1) / KCH), kpad = nch * KCH;
+  const int cpad = (cexp + CT - 1) / CT * CT;
+  if (wprep == nullptr || !aligned(wprep, 16)) return static_cast<int>(cudaErrorInvalidValue);
+  split_weights_kernel<<<dim3(kpad / 32, (cpad + 31) / 32), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(w_exp), static_cast<float*>(wprep), cin, cexp, cpad, kpad);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // two blocks an SM need ~2 x 108 KB: ask for the largest shared-memory carveout
+  // TMA reads rows of Cin floats: Cin a multiple of 4 (16-byte strides) and x on a
+  // 16-byte boundary; else the chunks are staged element by element
+  const int tma = cin > 0 && cin % 4 == 0 && aligned(x, 16);
+  const int ovec = cexp % 2 == 0 && aligned(out, 8);
+  const int ring = (K - 1 + g.rs) * ring_cols(g.sw, K) * ES * 4;
+  auto smem_of = [&](int resident, int slots) {
+    return 1024 + slots * slot_size(resident) + (resident ? nch * W_BYTES : 0) + ring;
+  };
+  // the weights resident where two blocks an SM still fit (228 KB, 1 KB of it reserved
+  // a block), else streamed through the slots with x (two blocks an SM at every B5 and
+  // V2-S shape); the most slots that keep the count
+  int resident = -1, slots = 0;
+  for (int pref = 0; pref < 4 && resident < 0; ++pref)
+    for (int n = MAX_SLOTS; n >= 2 && resident < 0; --n) {
+      const int bytes = smem_of(PREFER[pref][1], n) + static_smem(K);
+      if (bytes <= 232448 && 233472 / (bytes + 1024) >= PREFER[pref][0]) {
+        resident = PREFER[pref][1];
+        slots = n;
+      }
+    }
+  if (resident < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_of(resident, slots);
+  auto kernel = expand_dw_f32_kernel<K>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctiles = (cexp + CT - 1) / CT;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int64_t blocks = static_cast<int64_t>((H + TH - 1) / TH) * tiles_w * ctiles;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // the depthwise's 32-bit output offsets
-  if (static_cast<int64_t>(batch) * H * W * cexp > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int vec = cin % 4 == 0 && cexp % 4 == 0 && aligned(x) && aligned(w_exp);
-  const dim3 grid(static_cast<unsigned>(blocks), batch);
-  kernel<<<grid, THREADS, G::SMEM, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w_exp), bn,
-      static_cast<const float*>(w_dw), static_cast<float*>(out), static_cast<float*>(partials),
-      H, W, cin, cexp, ctiles, tiles_w, vec);
+  const tc::EncodeTiled encode = tc::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMap xmap, wmap;
+  memset(&xmap, 0, sizeof(xmap));
+  if (tma) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(W),
+                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(cin) * 4,
+                                   static_cast<cuuint64_t>(W) * cin * 4,
+                                   static_cast<cuuint64_t>(H) * W * cin * 4};
+    const cuuint32_t box[4] = {KCH, static_cast<cuuint32_t>(g.ncp), static_cast<cuuint32_t>(g.rs), 1};
+    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims, strides, box,
+               unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kpad), static_cast<cuuint64_t>(cpad), 2};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kpad) * 4,
+                                   static_cast<cuuint64_t>(cpad) * kpad * 4};
+    const cuuint32_t box[3] = {KCH, CT, 1};
+    if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, wprep, dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // channel tiles run fastest, so the blocks that read one strip read it from L2
+  const dim3 grid(cpad / CT, g.n_s * g.n_seg, batch);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      xmap, wmap, static_cast<const float*>(x), bn, static_cast<const float*>(w_dw),
+      static_cast<float*>(out), static_cast<float*>(partials), H, W, cin, cexp, g.sw, g.sh, g.n_s,
+      g.ncp, g.rs, slots, resident, tma, ovec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -981,14 +1188,17 @@ int launch_f32(const void* x, const void* w_exp, const Bn& bn, const void* w_dw,
 
 }  // namespace
 
-// Output tiles of one image and channel tile (the partials' middle dimension):
-// dtype 0 = float32, 1 = bfloat16.
+// Output tiles of one image and channel tile (the partials' middle dimension): the
+// strips and segments of `tc::geometry`, for both dtypes (0 = float32, 1 = bfloat16).
 extern "C" int mbconv_expand_dw_tiles(int dtype, int H, int W) {
-  if (dtype == 1) {
-    const tc::Geo g = tc::geometry(H, W, 3);  // strips and segments do not depend on K
-    return g.n_s * g.n_seg;
-  }
-  return ((H + f32::TH - 1) / f32::TH) * ((W + f32::TW - 1) / f32::TW);
+  (void)dtype;
+  const tc::Geo g = tc::geometry(H, W, 3);  // strips and segments do not depend on K
+  return g.n_s * g.n_seg;
+}
+
+// The floats of the fp32 path's prepared weights (the C entry's `wprep`; 0 for bf16).
+extern "C" int64_t mbconv_expand_dw_weight_floats(int dtype, int cin, int cexp) {
+  return dtype == 0 ? f32::weight_floats(cin, cexp) : 0;
 }
 
 // The partials' last dimension: Cexp rounded up to the channel tile.
@@ -998,15 +1208,17 @@ extern "C" int mbconv_expand_dw_channels(int cexp) {
 
 // dtype: 0 = float32, 1 = bfloat16. k: 3 or 5. bn1, bn2: mean, mul and bias [Cexp] f32
 // each. partials: f32 scratch of [batch, mbconv_expand_dw_tiles(dtype, H, W),
-// mbconv_expand_dw_channels(cexp)];
-// squeeze [batch, cexp] f32. Launches the kernel, then `squeeze_tiles_kernel`, on
+// mbconv_expand_dw_channels(cexp)]; wprep (fp32 only): f32 scratch of
+// mbconv_expand_dw_weight_floats(0, cin, cexp) values on a 16-byte boundary; table
+// (bf16 only): the SiLU table; squeeze [batch, cexp] f32. fp32 launches
+// `split_weights_kernel` first; then the kernel, then `squeeze_tiles_kernel`, all on
 // `stream`. Returns a cudaError_t value (cudaErrorInvalidValue for an unsupported
 // dtype or k).
 extern "C" int mbconv_expand_dw(int dtype, int k, const void* x, const void* w_exp,
                                 const void* mean1, const void* mul1, const void* bias1,
                                 const void* w_dw, const void* mean2, const void* mul2,
                                 const void* bias2, void* out, void* squeeze, void* partials,
-                                const void* table, int batch, int H, int W, int cin, int cexp,
+                                void* wprep, const void* table, int batch, int H, int W, int cin, int cexp,
                                 void* stream) {
   if (batch == 0 || cexp == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1017,9 +1229,9 @@ extern "C" int mbconv_expand_dw(int dtype, int k, const void* x, const void* w_e
               static_cast<const float*>(mul2), static_cast<const float*>(bias2)};
   int err;
   if (dtype == 0 && k == 3)
-    err = f32::launch_f32<3>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+    err = f32::launch_f32<3>(x, w_exp, bn, w_dw, out, partials, wprep, batch, H, W, cin, cexp, st);
   else if (dtype == 0 && k == 5)
-    err = f32::launch_f32<5>(x, w_exp, bn, w_dw, out, partials, batch, H, W, cin, cexp, st);
+    err = f32::launch_f32<5>(x, w_exp, bn, w_dw, out, partials, wprep, batch, H, W, cin, cexp, st);
   else if (dtype == 1 && k == 3)
     err = tc::launch_bf16<3>(x, w_exp, bn, w_dw, out, partials, table, batch, H, W, cin, cexp, st);
   else if (dtype == 1 && k == 5)

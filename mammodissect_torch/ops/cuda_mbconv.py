@@ -19,9 +19,11 @@ port's TF32-off policy (`device.set_fp32_policy`); the kernel source's note give
 design. `fused_expand_dw` launches the kernel for CUDA tensors and runs
 `expand_dw_plain` for CPU tensors, and only then. The kernel has no backward (neither
 has the TPU kernel): on inputs that need a gradient it raises.
-`fused_expand_dw.launches` counts the kernel's launches and
+`fused_expand_dw.launches` counts the kernel's launches,
 `fused_expand_dw.reduce_launches` those of its second kernel, which adds the squeeze's
-tile partials (one a launch). The bf16 kernel reads its SiLU's sigmoid from a table
+tile partials (one a launch), and `fused_expand_dw.weight_launches` those of the
+float32 path's first kernel, which splits the expand weights into their tf32 parts
+(one a float32 launch). The bf16 kernel reads its SiLU's sigmoid from a table
 (`silu_table`: built once a card by the kernel's own sigmoid, `sigmoid_bf16`, and
 cached here; `silu_tab_plain` is its lookup in plain PyTorch, held to the op chain
 over every bf16 value by the tests).
@@ -37,7 +39,6 @@ from mammodissect_torch.ops import kernels
 from mammodissect_torch.ops.activations import _sigmoid_chain, silu_chain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-FP32_LAUNCH_ELEMENTS = 2 ** 31 - 1  # output values of one fp32 launch (32-bit offsets)
 # The bf16 SiLU's table (`csrc/mbconv_expand_dw.cu`): the sigmoid r of the bf16
 # magnitudes TAB_LO (the largest below 2^-8) to TAB_HI (2^7), a >= 0 and then a < 0
 TAB_LO = (119 << 7) - 1
@@ -223,23 +224,23 @@ def _launch(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2):
     if any(t.device != x.device for t in tensors):
         raise ValueError("fused_expand_dw: all inputs must be on one device")
     chunk = 65535  # images a launch (the grid's batch dimension)
-    if x.dtype == torch.float32:
-        # the fp32 kernel's output offsets are 32-bit: a launch writes at most
-        # FP32_LAUNCH_ELEMENTS values (B5 fp32 at batch 16 writes 3.3e8 at most)
-        per_image = h * w * cexp
-        if per_image > FP32_LAUNCH_ELEMENTS:
-            raise ValueError(f"fused_expand_dw: {h} x {w} x {cexp} exceeds one fp32 launch")
-        chunk = max(1, min(chunk, FP32_LAUNCH_ELEMENTS // max(per_image, 1)))
     x, w_exp, w_dw = x.contiguous(), w_exp.contiguous(), w_dw.contiguous()
     lib = kernels.load("mbconv_expand_dw")
     code = _DTYPE_CODES[x.dtype]
     tiles, cpad = lib.mbconv_expand_dw_tiles(code, h, w), lib.mbconv_expand_dw_channels(cexp)
+    weight_floats = lib.mbconv_expand_dw_weight_floats
+    weight_floats.argtypes = [ctypes.c_int] * 3
+    weight_floats.restype = ctypes.c_int64
     out = torch.empty((b, h, w, cexp), dtype=x.dtype, device=x.device)
     squeeze = torch.empty((b, cexp), dtype=torch.float32, device=x.device)
     partials = torch.empty((min(b, chunk), tiles, cpad), dtype=torch.float32, device=x.device)
+    # float32: the expand weights' two tf32 parts, written by the launch's first kernel
+    n_prep = weight_floats(code, cin, cexp)
+    wprep = torch.empty(n_prep, dtype=torch.float32, device=x.device) if n_prep else None
+    wprep_ptr = None if wprep is None else wprep.data_ptr()  # wprep stays referenced
     table = silu_table(x.device).data_ptr() if x.dtype == torch.bfloat16 else None
     fn = lib.mbconv_expand_dw
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -248,11 +249,13 @@ def _launch(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2):
             rc = fn(code, k, x[i].data_ptr(), w_exp.data_ptr(),
                     *(v.data_ptr() for v in vecs[:3]), w_dw.data_ptr(),
                     *(v.data_ptr() for v in vecs[3:]), out[i].data_ptr(), squeeze[i].data_ptr(),
-                    partials.data_ptr(), table, n, h, w, cin, cexp, stream)
+                    partials.data_ptr(), wprep_ptr, table, n, h, w, cin, cexp, stream)
             kernels.check(rc, "mbconv_expand_dw")
             if h and w and cexp:
                 fused_expand_dw.launches += 1
                 fused_expand_dw.reduce_launches += 1
+                if x.dtype == torch.float32:
+                    fused_expand_dw.weight_launches += 1
     return out, squeeze
 
 
@@ -276,3 +279,4 @@ def fused_expand_dw(x: torch.Tensor, w_exp: torch.Tensor, bn1_mean: torch.Tensor
 
 fused_expand_dw.launches = 0
 fused_expand_dw.reduce_launches = 0
+fused_expand_dw.weight_launches = 0

@@ -17,10 +17,12 @@ import torch.nn.functional as F
 
 # atol and rtol against float64: the 3xTF32 expand meets it, one tf32 pass does not
 F64_TOL = 1e-5
-# (k, H, W, Cin, Cexp) of the precision tests: odd widths, B5's and V2's deep blocks
+# (k, H, W, Cin, Cexp) of the precision tests: odd widths, B5's and V2's deep blocks,
+# and the kernel's strips and segments with a ragged last strip (121 = 3 strips of 41,
+# 41, 39; 70 = 2 of 35; 37 and 33 rows = 2 segments each; 48 positions a step)
 PRECISION_SHAPES = [(3, 38, 29, 40, 240), (5, 19, 17, 64, 384), (5, 13, 11, 20, 120),
                     (3, 21, 19, 24, 144), (5, 17, 18, 56, 104), (3, 48, 29, 512, 3072),
-                    (5, 48, 29, 304, 1824)]
+                    (5, 48, 29, 304, 1824), (3, 37, 121, 40, 240), (5, 33, 70, 64, 384)]
 
 
 def expand_dominant_args(b, h, w, cin, cexp, k, dtype, device, seed=6):

@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from mammodissect_torch.ops import cuda_mbconv
 from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 from mammodissect_torch.ops.cuda_wpmi import (
     soft_wpmi_gather_logsum,
@@ -145,21 +144,26 @@ BF16_EXACT = dict(atol=0.0, rtol=0.0)
                                             (5, 33, 29, 304, 1824), (3, 65, 57, 128, 768),
                                             (5, 14, 29, 64, 384), (3, 5, 16, 64, 96)])
 def test_mbconv_kernel_matches_plain(cuda, dtype, tol, k, h, w, cin, cexp):
-    """Besides B5's and V2-S's shapes, the bf16 kernel's strips and segments: W 65
-    (one past the widest single strip: two strips) and 121 (three), H 33 and 65 (one
-    past one and two 32-row segments), W 29 in one strip at both K (two rows a step)
-    and W 16 (four rows a step). bf16 bit for bit; two launches identical."""
+    """Besides B5's and V2-S's shapes, the kernel's strips and segments (both dtypes
+    walk them): W 65 (one past the widest single strip: two strips) and 121 (three), H
+    33 and 65 (one past one and two 32-row segments), W 29 in one strip at both K (two
+    rows a step) and W 16 (four rows a step). bf16 bit for bit; two launches
+    identical; fp32 launches its weight split once a call."""
     args = _mbconv_args(2, h, w, cin, cexp, k, dtype, cuda)
-    before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
+    before = _counts()
     got, squeeze = fused_expand_dw(*args)
     torch.cuda.synchronize()
-    assert (fused_expand_dw.launches, fused_expand_dw.reduce_launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + (dtype == torch.float32))
     want, want_squeeze = expand_dw_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
     _assert_squeeze_close(squeeze, want_squeeze, want, **_squeeze_tol(dtype, tol))
     again, squeeze_again = fused_expand_dw(*args)
     assert torch.equal(again, got) and torch.equal(squeeze_again, squeeze)
+
+
+def _counts():
+    return (fused_expand_dw.launches, fused_expand_dw.reduce_launches,
+            fused_expand_dw.weight_launches)
 
 
 def _squeeze_tol(dtype, tol):
@@ -186,21 +190,19 @@ def test_mbconv_kernel_full_b5_shape(cuda, dtype, tol, k, h, w, cin, cexp):
 
 
 @pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 380, 228, 40, 240), (5, 48, 29, 304, 1824)])
-def test_mbconv_kernel_fp32_call_split_into_launches(cuda, monkeypatch, k, h, w, cin, cexp):
-    """An fp32 call whose output exceeds `FP32_LAUNCH_ELEMENTS` values (32-bit
-    offsets) runs as launches of whole images, which share one partials buffer. The
-    limit is lowered to two images, so batch 5 takes three launches (2, 2 and 1
-    images) at B5 shapes: out and squeeze equal one launch's bit for bit, and each
-    counter grows by the three launches."""
+def test_mbconv_kernel_fp32_batch_in_one_launch(cuda, k, h, w, cin, cexp):
+    """An fp32 call at batch 5 of a B5 shape is one launch (64-bit output offsets:
+    no split of the batch), and its out and squeeze equal those of its images run one
+    at a time, bit for bit (each image's blocks compute the same sums in the same
+    order)."""
     args = _mbconv_args(5, h, w, cin, cexp, k, torch.float32, cuda)
+    before = _counts()
     whole, whole_squeeze = fused_expand_dw(*args)
-    monkeypatch.setattr(cuda_mbconv, "FP32_LAUNCH_ELEMENTS", 2 * h * w * cexp + 1)
-    before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
-    split, split_squeeze = fused_expand_dw(*args)
     torch.cuda.synchronize()
-    assert (fused_expand_dw.launches, fused_expand_dw.reduce_launches) == \
-        (before[0] + 3, before[1] + 3)
-    assert torch.equal(split, whole) and torch.equal(split_squeeze, whole_squeeze)
+    assert _counts() == tuple(c + 1 for c in before)
+    for i in range(5):
+        one, one_squeeze = fused_expand_dw(args[0][i:i + 1].contiguous(), *args[1:])
+        assert torch.equal(one[0], whole[i]) and torch.equal(one_squeeze[0], whole_squeeze[i])
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_EXACT),
@@ -215,11 +217,11 @@ def test_mbconv_kernel_fp32_call_split_into_launches(cuda, monkeypatch, k, h, w,
 def test_mbconv_kernel_odd_widths(cuda, dtype, tol, k, h, w, cin, cexp, shifted):
     """Cin not a multiple of 16 (24, 56, 100) or of 8 (20: in bf16 the chunks are
     staged element by element, not by TMA; also across two strips and two segments,
-    70 x 37), Cexp not a multiple of the 48-channel tile (104, 120) or of 8 (100, 101:
-    element-wise weight staging in bf16; 101 also element-wise stores), x starting one
-    element past a 16-byte boundary (bf16: no TMA); bf16 bit for bit. fp32 stages
-    element by element only where a width is not a multiple of 4 or a pointer is not
-    16-byte aligned: `test_mbconv_kernel_fp32_element_staging`."""
+    70 x 37, in both dtypes), Cexp not a multiple of the 48-channel tile (104, 120) or
+    of 8 (100, 101: element-wise weight staging in bf16; 101 also element-wise
+    stores), x starting one element past a 16-byte boundary (no TMA in either dtype);
+    bf16 bit for bit. fp32 also stages element by element where Cin is not a multiple
+    of 4: `test_mbconv_kernel_fp32_element_staging`."""
     args = list(_mbconv_args(2, h, w, cin, cexp, k, dtype, cuda))
     if shifted:
         args[0] = _unaligned(args[0])
@@ -246,9 +248,10 @@ def test_mbconv_kernel_fp32_against_float64(cuda, k, h, w, cin, cexp):
     """The float32 precision policy: the fp32 kernel at the expand-dominant scales
     against the same function in float64, within 1e-5 + 1e-5|x|. At these inputs
     (`python tests/_mbconv_f64.py cuda`, NVIDIA H100 80GB HBM3) the kernel is within
-    4.1e-7 (1 + |x|) and float32 products within 7.5e-7 (1 + |x|): a margin of over
-    10x; one tf32 pass (emulated) is off by 1.6e-4 to 3.6e-4 (1 + |x|), missing the
-    tolerance by 16x or more, which the test asserts at the same inputs."""
+    2.8e-7 (1 + |x|) and float32 products within 8.5e-7 (1 + |x|): a margin of over
+    30x; one tf32 pass (emulated) is off by 1.7e-4 to 4.1e-4 (1 + |x|), missing the
+    tolerance by 17x or more, which the test asserts at the same inputs. The shapes
+    include several strips and segments with a ragged last strip."""
     args = expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, cuda)
     got = fused_expand_dw(*args)[0].double().cpu()
     cpu_args = [a.cpu() for a in args]
@@ -270,9 +273,11 @@ def _unaligned(t):
                                                     (3, 17, 18, 24, 144, "x"),
                                                     (5, 13, 11, 40, 120, "w_exp")])
 def test_mbconv_kernel_fp32_element_staging(cuda, k, h, w, cin, cexp, shifted):
-    """The fp32 kernel's element-by-element staging: Cin and Cexp not multiples of 4
-    (21, 102), or x or w_exp starting off a 16-byte boundary, at the expand-dominant
-    inputs; held to the plain version at 1e-4 + 1e-4|x| and to float64 at `F64_TOL`."""
+    """The fp32 kernel's element-by-element staging of x (Cin not a multiple of 4, or
+    x off a 16-byte boundary: TMA refuses them), and odd Cexp (102) and w_exp off a
+    16-byte boundary (the weight split reads w_exp element by element in any case),
+    at the expand-dominant inputs; held to the plain version at 1e-4 + 1e-4|x| and to
+    float64 at `F64_TOL`."""
     args = list(expand_dominant_args(2, h, w, cin, cexp, k, torch.float32, cuda))
     if shifted:
         i = ("x", "w_exp").index(shifted)

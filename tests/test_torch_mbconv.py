@@ -86,9 +86,10 @@ def test_plain_bf16_border_rows():
 
 def test_wrapper_on_cpu_is_plain_and_launches_nothing():
     args = _torch_args(_setup(b=1, h=9, w=7, cin=8, cexp=16, k=3), torch.float32)
-    before = fused_expand_dw.launches, fused_expand_dw.reduce_launches
+    counters = ("launches", "reduce_launches", "weight_launches")
+    before = [getattr(fused_expand_dw, c) for c in counters]
     got = fused_expand_dw(*args)
-    assert (fused_expand_dw.launches, fused_expand_dw.reduce_launches) == before
+    assert [getattr(fused_expand_dw, c) for c in counters] == before
     for g, w in zip(got, expand_dw_plain(*args)):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
 
@@ -296,7 +297,8 @@ def test_tf32_rounds_like_cvt_rna():
 
 
 @pytest.mark.parametrize("k,h,w,cin,cexp", [(3, 38, 29, 40, 240), (5, 13, 11, 20, 120),
-                                            (3, 6, 5, 512, 3072)])
+                                            (3, 6, 5, 512, 3072), (3, 37, 121, 40, 240),
+                                            (5, 33, 70, 64, 384)])
 def test_float64_reference_matches_plain(k, h, w, cin, cexp):
     """The float64 function the GPU precision test holds the fp32 kernel to is kernel
     2's: the plain version in float32 agrees with it within that test's tolerance

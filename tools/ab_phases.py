@@ -1,8 +1,9 @@
-"""Kernel 2's time a B5 forward, the main path's and the C-dissect's img/s, of one or
+"""Kernel 2's time a B5 forward, the main path's and the C-dissects' img/s, of one or
 more checkouts of the repo on one card: `chip_smoke.py`'s phases 2 (build), 5
 (kernel 2 at the B5 shapes, bf16), 6 (the flagship resident M-dissect), 8 (the
-C-dissect, with kernel 2's fp32 shapes) and 13's kernel 2 at the V2-S shapes of each
-checkout, run in a process of its own and in the order given. Imports the port only
+C-dissect, with kernel 2's fp32 shapes), 13a (the V2-S C-dissect) and 13's kernel 2
+at the V2-S shapes of each checkout, run in a process of its own and in the order
+given. Imports the port only
 (no JAX).
 
     python tools/ab_phases.py ROOT [ROOT ...]
@@ -12,8 +13,9 @@ compare two trees within one call. Each checkout's phases check what they check 
 `chip_smoke.py` (a failure stops the run). Prints the card's name and power limit,
 then for each checkout its phase-5 lines (kernel 2 at each B5 shape) and one JSON
 line: its root, kernel 2's bf16 and fp32 ms a B5 forward (32 launches at batch 16)
-with the bf16 bound, the main path's img/s and peak memory, the C-dissect's img/s,
-kernel 2's bf16 and fp32 ms a V2-S forward (28 launches) with the bf16 bound.
+with the bf16 bound, fp32 at each B5 and V2-S shape, the main path's img/s and peak
+memory, the C-dissect's and the V2-S C-dissect's img/s, kernel 2's bf16 and fp32 ms a
+V2-S forward (28 launches) with the bf16 bound.
 """
 from __future__ import annotations
 
@@ -38,15 +40,19 @@ pool = smoke.mammo_pool(smoke.POOL, *smoke.IMAGE_HW, seed=0)
 dissector, _ = smoke.flagship_dissector(device)
 main = smoke.phase_main_path(device, pool, dissector)
 c = smoke.phase_c_dissect(device, pool, dissector)
+c_v2 = smoke.v2_c_dissect(device, pool, c)
 v2 = smoke.v2_mbconv_rows(device)
 print("AB " + json.dumps({
     "root": sys.argv[1],
     "kernel2_bf16_forward_ms": sum(r["ms"] * r["blocks"] for r in rows),
     "kernel2_bf16_forward_bound_ms": sum(r["bound_ms"] * r["blocks"] for r in rows),
     "kernel2_fp32_forward_ms": c["fp32_forward_ms"],
+    "kernel2_fp32_shapes_ms": [r["ms"] for r in c["fp32_shapes"]],
+    "kernel2_v2_fp32_shapes_ms": [r["fp32"]["ms"] for r in v2],
     "main_img_per_s": main["img_per_s"],
     "main_peak_gib": main["max_memory_allocated_bytes"] / 2 ** 30,
     "c_dissect_img_per_s": c["img_per_s"],
+    "v2_c_dissect_img_per_s": c_v2["img_per_s"],
     "kernel2_v2_bf16_forward_ms": sum(r["bf16"]["ms"] * r["blocks"] for r in v2),
     "kernel2_v2_fp32_forward_ms": sum(r["fp32"]["ms"] * r["blocks"] for r in v2),
     "kernel2_v2_bf16_forward_bound_ms": sum(r["bf16"]["bound_ms"] * r["blocks"] for r in v2)}),

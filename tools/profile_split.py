@@ -7,6 +7,10 @@ kind of kernel, and the device's idle share. Imports the port only (no JAX).
         the 762 concepts, soft-WPMI, batch 16, the plain wire, random weights from
         seed 0) on N `synthetic_u8` images (default 256) through the CLI with
         `--profile DIR`, then the split of DIR/trace.json
+    python tools/profile_split.py run-c DIR [N]
+        the same for the staged C-dissect at phase 8's configuration: the fine-tuned
+        classifier target (B5 fp32, random weights from seed 2, all 39 blocks)
+        dissected by that BreastClip, N images (default 256)
     python tools/profile_split.py DIR
         the split of an existing DIR/trace.json
 
@@ -28,7 +32,10 @@ CONCEPTS = os.path.join(ROOT, "mammodissect", "assets", "concepts",
                         "Specific_concepts_sorted.txt")
 
 # the port's kernels, by name
-OWN_KERNELS = (("kernel 2 (MBConv front half and its squeeze)", r"expand_dw_|squeeze_tiles_kernel"),
+OWN_KERNELS = (("kernel 2 fp32 (MBConv front half and its weight split)",
+                r"expand_dw_f32|split_weights_kernel"),
+               ("kernel 2 bf16 (MBConv front half and its SiLU table)", r"expand_dw_bf16|sigmoid_bf16"),
+               ("kernel 2's squeeze partials", r"squeeze_tiles_kernel"),
                ("kernel 1 (soft-WPMI)", r"gather_logsum"))
 # every other kernel by the ATen op that launched it (the innermost op, linked by the
 # trace's "External id")
@@ -84,16 +91,19 @@ def split(trace_path: str) -> dict:
             "other_ops": dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])}
 
 
-def run(out_dir: str, n: int) -> None:
+def run(out_dir: str, n: int, c_dissect: bool = False) -> None:
     from mammodissect_torch.cli import dissect
 
-    argv = ["--target_model", "breastclip", "--clip_model", "breastclip",
+    target = (["--target_model", "breastclip_classifier", "--target_kwargs", json.dumps({"seed": 2})]
+              if c_dissect else ["--target_model", "breastclip"])
+    argv = [*target, "--clip_model", "breastclip",
             "--dissector_kwargs", json.dumps({"dtype": "bfloat16", "bert_layers": 12, "seed": 0}),
             "--target_layers", ",".join(f"blocks.{i}" for i in range(39)),
             "--d_probe", "synthetic_u8",
             "--probe_kwargs", json.dumps({"n": n, "h": 1520, "w": 912, "c": 1}),
-            "--concept_set", CONCEPTS, "--batch_size", "16", "--resident",
-            "--wire_pack", "off", "--activation_dir", os.path.join(out_dir, "acts"),
+            "--concept_set", CONCEPTS, "--batch_size", "16",
+            *([] if c_dissect else ["--resident", "--wire_pack", "off"]),
+            "--activation_dir", os.path.join(out_dir, "acts"),
             "--result_dir", os.path.join(out_dir, "results"), "--profile", out_dir]
     rc = dissect.main(argv)
     if rc:
@@ -102,9 +112,9 @@ def run(out_dir: str, n: int) -> None:
 
 def main(argv) -> int:
     sys.path.insert(0, ROOT)
-    if argv and argv[0] == "run":
+    if argv and argv[0] in ("run", "run-c"):
         out_dir = argv[1]
-        run(out_dir, int(argv[2]) if len(argv) > 2 else 256)
+        run(out_dir, int(argv[2]) if len(argv) > 2 else 256, c_dissect=argv[0] == "run-c")
     else:
         out_dir = argv[0]
     print(json.dumps(split(os.path.join(out_dir, "trace.json"))), flush=True)
