@@ -13,6 +13,7 @@ import mammodissect.data.transforms as JT
 import mammodissect.train.detection_data as jdd
 import mammodissect_torch.data.transforms as TT
 import mammodissect_torch.train.detection_data as tdd
+from tests._jax_native import jax_native  # noqa: F401  (a fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -58,7 +59,7 @@ def _assert_items_equal(got, want, image_tol=None):
         np.testing.assert_array_equal(got["image"], want["image"])
 
 
-def test_dataset_collate_and_draw_equal(img_csv):
+def test_dataset_collate_and_draw_equal(img_csv, jax_native):
     root, _ = img_csv
     det = pd.DataFrame(DET_ROWS)
     kw = dict(root=root, size_hw=(40, 30), max_boxes=4)
@@ -139,7 +140,7 @@ def test_vindr_and_clip_preprocess_equal():
     np.testing.assert_array_equal(TT.CLIP_STD, JT.CLIP_STD)
 
 
-def test_concept_dataset_column_switch(img_csv):
+def test_concept_dataset_column_switch(img_csv, jax_native):
     root, df = img_csv
     df = df.assign(Mass=1)
     ds = tdd.concept_dataset(df, "mass", root=root, size_hw=(40, 30))

@@ -15,6 +15,7 @@ import mammodissect.data.transforms as JT
 import mammodissect_torch.data.probes as P
 import mammodissect_torch.data.transforms as PT
 from mammodissect_torch import native
+from tests._jax_native import jax_native  # noqa: F401  (a fixture)
 
 NAMES = ["vindr", "csaw", "csaw_all_splits", "embed_png", "embed_marker_84",
          "embed_marker_only", "embed_implant", "embed_non_implant", "embed_non_implant_100"]
@@ -39,7 +40,7 @@ def metadata(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_named_probe_matches_jax(metadata, name):
+def test_named_probe_matches_jax(metadata, name, jax_native):
     kw = dict(csv_file=str(metadata / "meta.csv"), root=str(metadata))
     jp, pp = J.get_probe(name, **kw), P.get_probe(name, **kw)
     pd.testing.assert_frame_equal(pp.df, jp.df)
@@ -74,7 +75,7 @@ def test_named_probe_needs_a_csv_file():
     assert set(NAMES) <= set(P.PROBES)
 
 
-def test_float_eval_resize_follows_the_jax_default(metadata):
+def test_float_eval_resize_follows_the_jax_default(metadata, jax_native):
     """Fault F1: the float eval path resizes natively (no antialiasing), as the JAX
     package does by default; PIL's antialiased bilinear differs on a shrink."""
     assert native.available(), "g++ could not build the native library"

@@ -26,6 +26,7 @@ from mammodissect_torch.models.breastclip import BreastClipModule
 from mammodissect_torch.models.tokenizers import WordPieceTokenizer
 from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
 from mammodissect_torch.train.trainer import make_optimizer
+from tests._jax_native import jax_native  # noqa: F401  (a fixture)
 
 PROMPTS = {
     "Mass": {"pos_right": ["mass right"], "pos_left": ["mass left"],
@@ -408,7 +409,7 @@ def test_mesh_and_tensor_parallel_name_item_17():
 # ---------------------------------------------------------------------- the datasets
 @pytest.mark.parametrize("wire", ["f32", "u8"])
 @pytest.mark.parametrize("split", ["train", "valid"])
-def test_imagetext_batches_match_jax(multiview, wire, split):
+def test_imagetext_batches_match_jax(multiview, wire, split, jax_native):
     """ImageTextDataset.batches against the JAX package's, same seeds: every array
     byte for byte and the same texts (view and path draws, the augmentation of the
     train split, the generated reports)."""
@@ -428,7 +429,7 @@ def test_imagetext_batches_match_jax(multiview, wire, split):
                 assert g[k] == w[k], k
 
 
-def test_imagetext_host_slices_match_jax(multiview):
+def test_imagetext_host_slices_match_jax(multiview, jax_native):
     """Two processes' slices of each batch: the same rows as the JAX package's."""
     df, root = multiview
     jtok, tok = _toks()
@@ -445,7 +446,7 @@ def test_imagetext_host_slices_match_jax(multiview):
         next(P.ImageTextDataset(df, **kw).batches(tok, 3, host_count=2))
 
 
-def test_sibling_datasets_match_jax(multiview, tmp_path):
+def test_sibling_datasets_match_jax(multiview, tmp_path, jax_native):
     """The grouped (report sentences), contrastive-sentence, retrieval and aligner
     datasets and `segment_report` against the JAX package's on the same rows."""
     df, root = multiview
@@ -549,7 +550,7 @@ def test_datamodule_matches_jax(img_csv):
 
 
 @pytest.mark.parametrize("host_count", [1, 3])
-def test_iter_epoch_host_slices_match_jax(img_csv, host_count):
+def test_iter_epoch_host_slices_match_jax(img_csv, host_count, jax_native):
     from mammodissect.train.data import ClassifierDataset as JaxDataset
     from mammodissect.train.data import iter_epoch as jax_iter_epoch
     from mammodissect_torch.train.data import ClassifierDataset, iter_epoch

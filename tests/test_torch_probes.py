@@ -9,6 +9,7 @@ import mammodissect.data.probes as J
 import mammodissect.data.transforms as JT
 import mammodissect_torch.data.probes as P
 import mammodissect_torch.data.transforms as T
+from tests._jax_native import jax_native  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +28,7 @@ def image_dir(tmp_path_factory):
     return root
 
 
-def test_csv_probe_matches_jax(image_dir):
+def test_csv_probe_matches_jax(image_dir, jax_native):
     kw = dict(root=str(image_dir), size_hw=(20, 16), label_col="label")
     jp = J.CsvProbe(str(image_dir / "probe.csv"), **kw)
     pp = P.get_probe(f"csv:{image_dir / 'probe.csv'}", **kw)
