@@ -76,7 +76,14 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      1) and on the CPU (plain versions): the same top images and >= 0.99 of the top-1
      concepts; (e) `cli.zseval` with the bf16 BreastClip (B5 at 1520x912) on a `csv:`
      probe of phase 10's mammogram PNGs (label Mass): a finite AUROC, img/s, kernel 2
-     launched 32 times a batch; then with ViT-B/16 on an RGB folder probe.
+     launched 32 times a batch; then with ViT-B/16 on an RGB folder probe; (f) the
+     CIFAR-100 probe, resolved by name (`cifar100_val`) through a stand-in
+     `torchvision` whose CIFAR100 gives seeded uint8 images of the test split's shape
+     (10000 x 32 x 32 x 3, 100 classes; no CIFAR-100 files are in the repo): (a)'s
+     dissection with both towers at `image_size` 32 (9216 units), img/s, stage
+     seconds, peak memory, kernel 1 launched once and kernel 2 never; kernel 1 at its
+     shape (U = 9216, k = 100, N = 10000) against its plain version, timed, with its
+     bound; (d)'s narrow comparison on 512 stand-in images at 32x32.
  12. the target zoo (random weights from seeds, float32 batches, TF32 off), each run
      reading the dissector's image and text caches of an earlier phase: (a) `resnet50`
      (conv1, layer1-4: 3904 units) and `vit` (the HF ViT-B/16, 12 layers: 9216 units)
@@ -148,6 +155,7 @@ only."""
 from __future__ import annotations
 
 import ast
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -201,6 +209,8 @@ FT_TIMED_STEPS = 10
 FT_POS_WEIGHT = 15.573306370070778  # VinDr Mass (cli.finetune.DEFAULT_BCE_WEIGHTS)
 FT_TRAIN, FT_VALID = 32, 16         # synthetic PNGs of the end-to-end fine-tune
 GD_N, GD_BATCH, GD_SIZE = 2048, 128, 224  # G-dissect: probe images, batch, side
+CIFAR_TEST_N, CIFAR_TRAIN_N, CIFAR_CLASSES = 10000, 50000, 100  # CIFAR-100's splits
+CIFAR_AGREE_N = 512    # stand-in CIFAR-100 images of the narrow card-vs-CPU run
 ZS_RGB_N = 64          # RGB PNGs of the ViT zero-shot run
 
 
@@ -1416,37 +1426,108 @@ def wpmi_gdissect_shape(device, u, c, k, n, label="G-dissect"):
     return row
 
 
-def gdissect_card_vs_cpu():
-    """(d): a narrow ViT G-dissect (fp32, TF32 off) on the card and on the CPU."""
+def gdissect_card_vs_cpu(d_probe="synthetic", probe_kwargs=None, image_size=64,
+                         label="narrow ViT (4 x 128, 64x64), 256 images"):
+    """(d), and (f)'s CIFAR-100 run: a narrow ViT G-dissect (fp32, TF32 off) on the card
+    and on the CPU, the probe resolved by name in each run."""
     import torch
 
-    from mammodissect_torch.data.probes import get_probe
     from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
     from mammodissect_torch.models.clip_vit import OpenAIClip
 
+    if probe_kwargs is None:
+        probe_kwargs = {"n": 256, "h": 64, "w": 64, "c": 3, "seed": 1}
     narrow = dict(vision_width=128, vision_layers=4, vision_heads=2, text_width=128,
-                  text_layers=2, text_heads=2, embed_dim=64, image_size=64)
-    probe = get_probe("synthetic", n=256, h=64, w=64, c=3, seed=1)
+                  text_layers=2, text_heads=2, embed_dim=64, image_size=image_size)
     work = tempfile.mkdtemp(prefix="chip_smoke_gd_agree_")
     dfs = {}
     for dev in ("cpu", "cuda"):
         clip = OpenAIClip("ViT-B/16", seed=1, device=dev, **narrow)
         cfg = DissectConfig(target_model="ViT-B/16", clip_model="ViT-B/16",
-                            target_layers=[f"layers.{i}" for i in range(4)], d_probe="synthetic",
-                            concept_set=CONCEPTS, batch_size=64, device=dev,
-                            activation_dir=os.path.join(work, dev, "acts"),
+                            target_layers=[f"layers.{i}" for i in range(4)], d_probe=d_probe,
+                            probe_kwargs=probe_kwargs, concept_set=CONCEPTS, batch_size=64,
+                            device=dev, activation_dir=os.path.join(work, dev, "acts"),
                             result_dir=os.path.join(work, dev, "results"))
-        dfs[dev], _ = run_dissection(cfg, probe=probe, target=clip, dissector=clip,
-                                     log=lambda *_: None)
+        dfs[dev], _ = run_dissection(cfg, target=clip, dissector=clip, log=lambda *_: None)
     torch.cuda.synchronize()
     top = {k: [row[0] for row in df["description"]] for k, df in dfs.items()}
     agree = float(np.mean([a == b for a, b in zip(top["cpu"], top["cuda"])]))
     images = float(np.mean([a == b for a, b in zip(dfs["cpu"]["images"], dfs["cuda"]["images"])]))
-    say(f"[g-dissect] card vs CPU, narrow ViT (4 x 128, 64x64), 256 images, 512 units, fp32, "
-        f"TF32 off: top-1 concept agreement {agree:.4f}, identical top-image lists {images:.4f}")
-    check(agree >= 0.99, f"G-dissect card vs CPU: top-1 agreement {agree} < 0.99")
-    check(images == 1.0, f"G-dissect card vs CPU: top images differ ({images})")
+    say(f"[g-dissect] card vs CPU, {label}, {len(dfs['cuda'])} units, fp32, TF32 off: top-1 "
+        f"concept agreement {agree:.4f}, identical top-image lists {images:.4f}")
+    check(len(dfs["cuda"]) == len(dfs["cpu"]) == 512, f"G-dissect card vs CPU ({d_probe}): "
+          f"{len(dfs['cuda'])} and {len(dfs['cpu'])} rows, expected 512")
+    check(agree >= 0.99, f"G-dissect card vs CPU ({d_probe}): top-1 agreement {agree} < 0.99")
+    check(images == 1.0, f"G-dissect card vs CPU ({d_probe}): top images differ ({images})")
     return {"top1_agreement": agree, "top_images_identical": images}
+
+
+@contextlib.contextmanager
+def stand_in_cifar100(n_test=CIFAR_TEST_N, seed=0):
+    """A `torchvision` module in sys.modules whose `datasets.CIFAR100(root, train,
+    download)` refuses to download and gives seeded uint8 `data` of the split's shape
+    ([50000 or n_test, 32, 32, 3]) and `targets`, each of the 100 classes equally often,
+    reading nothing under `root`. The entry it replaced is put back on the way out."""
+    import types
+
+    class CIFAR100:
+        def __init__(self, root, train=True, download=False):
+            check(download is False, f"CIFAR100(download={download!r}): nothing is downloaded")
+            n = CIFAR_TRAIN_N if train else n_test
+            rng = np.random.default_rng(seed + int(train))
+            self.data = rng.integers(0, 256, size=(n, 32, 32, 3), dtype=np.uint8)
+            self.targets = rng.permutation(np.arange(n) % CIFAR_CLASSES).tolist()
+
+    tv = types.ModuleType("torchvision")
+    tv.datasets = types.SimpleNamespace(CIFAR100=CIFAR100)
+    missing = object()
+    saved = sys.modules.get("torchvision", missing)
+    sys.modules["torchvision"] = tv
+    try:
+        yield
+    finally:
+        if saved is missing:
+            del sys.modules["torchvision"]
+        else:
+            sys.modules["torchvision"] = saved
+
+
+def gdissect_cifar100(device, work, n_concepts, card):
+    """(f): ViT-B/16 x 12 layers dissected by ViT-B/16, both towers at CIFAR's 32x32,
+    on the stand-in CIFAR-100 test split resolved by name (`cifar100_val`)."""
+    from mammodissect_torch.dissect.engine import DissectConfig
+
+    size = {"image_size": 32}
+    cfg = DissectConfig(target_model="ViT-B/16", clip_model="ViT-B/16",
+                        target_layers=[f"layers.{i}" for i in range(12)], d_probe="cifar100_val",
+                        probe_kwargs={"data_root": os.path.join(work, "cifar100")},
+                        target_kwargs=size, dissector_kwargs=size, concept_set=CONCEPTS,
+                        batch_size=GD_BATCH, similarity_fn="soft_wpmi", resident=False,
+                        device=device.type, activation_dir=os.path.join(work, "acts_cifar100"),
+                        result_dir=os.path.join(work, "results_cifar100"))
+    with stand_in_cifar100():
+        df, logs, wall, launches, peak = gdissect_run(cfg, None)
+    stages = stage_seconds(logs)
+    check(len(df) == 12 * 768, f"CIFAR-100 G-dissect CSV has {len(df)} rows, expected 9216")
+    check(np.isfinite(csv_similarities(df)).all(),
+          "non-finite similarities in the CIFAR-100 G-dissect CSV")
+    check(launches == {"mbconv": 0, "wpmi": 1},
+          f"CIFAR-100 G-dissect launches {launches}, expected kernel 1 once and kernel 2 never")
+    check(any(l.startswith(f"[harvest] {CIFAR_TEST_N} images x 12 layers") for l in logs),
+          f"CIFAR-100 G-dissect did not harvest {CIFAR_TEST_N} images: {logs}")
+    check(set(stages) == {"target", "dissector", "harvest", "clip-img", "clip-txt", "scoring",
+                          "results"}, f"CIFAR-100 G-dissect stage lines missing: {logs}")
+    row = {"images": CIFAR_TEST_N, "batch": GD_BATCH, "size": 32, "units": len(df),
+           "concepts": n_concepts, "wall_s": wall, "img_per_s": CIFAR_TEST_N / wall,
+           "stages_s": stages, "other_s": wall - sum(stages.values()),
+           "max_memory_allocated_bytes": peak, "launches": launches, "card": card}
+    say(f"[g-dissect] CIFAR-100 (cifar100_val by name, the stand-in's {CIFAR_TEST_N} images at "
+        f"32x32x3): ViT-B/16 x 12 layers (9216 units) dissected by ViT-B/16, both at "
+        f"image_size 32, {n_concepts} BPE concepts, soft-WPMI, fp32, batch {GD_BATCH}, "
+        f"staged: {wall:.2f} s wall with the probe's build, {row['img_per_s']:.2f} img/s; "
+        f"stages {stages} s, other {row['other_s']:.2f} s; peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches}; {card}")
+    return row
 
 
 def zeroshot_run(argv, work, name):
@@ -1523,7 +1604,7 @@ def phase_zeroshot(png_root):
     return {"breastclip": mammo, "vit": vit}
 
 
-def phase_gdissect(device, png_root):
+def phase_gdissect(device, png_root, card):
     import torch
 
     work = tempfile.mkdtemp(prefix="chip_smoke_gd_")
@@ -1532,8 +1613,22 @@ def phase_gdissect(device, png_root):
     kernel1 = wpmi_gdissect_shape(device, full["units"], n_concepts, 100, GD_N)
     agree = gdissect_card_vs_cpu()
     torch.cuda.empty_cache()
+    say(f"[g-dissect] CIFAR-100 runs: no CIFAR-100 files are here, so `torchvision` is a "
+        f"stand-in whose CIFAR100 gives seeded uint8 images (seed 0) of the split's shape, "
+        f"{CIFAR_CLASSES} classes")
+    cifar = gdissect_cifar100(device, work, n_concepts, card)
+    torch.cuda.empty_cache()
+    cifar_kernel1 = wpmi_gdissect_shape(device, cifar["units"], n_concepts, 100, CIFAR_TEST_N,
+                                        label="CIFAR-100")
+    with stand_in_cifar100(n_test=CIFAR_AGREE_N):
+        cifar_agree = gdissect_card_vs_cpu(
+            "cifar100_val", {"data_root": os.path.join(work, "cifar100")}, image_size=32,
+            label=f"narrow ViT (4 x 128, 32x32), {CIFAR_AGREE_N} stand-in CIFAR-100 images")
+    torch.cuda.empty_cache()
     zs = phase_zeroshot(png_root)
     return {"vit": full, "clip_rn50": rn, "kernel1": kernel1, "card_vs_cpu": agree,
+            "cifar100": cifar, "kernel1_cifar100": cifar_kernel1,
+            "card_vs_cpu_cifar100": cifar_agree,
             "zeroshot": zs, "work": work, "probe": probe, "concepts": n_concepts}
 
 
@@ -2759,7 +2854,7 @@ def main():
     torch.cuda.empty_cache()
     finetune = phase_finetune(device, pool)
     torch.cuda.empty_cache()
-    gdissect = phase_gdissect(device, finetune["end_to_end"]["png_root"])
+    gdissect = phase_gdissect(device, finetune["end_to_end"]["png_root"], card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     zoo = phase_zoo(device, gdissect, c_dissect, pool)
@@ -2793,9 +2888,11 @@ def main():
          "launches_finetune": finetune["end_to_end"]["launches"]["wpmi"],
          "launches_gdissect": gdissect["vit"]["launches"]["wpmi"],
          "launches_gdissect_clip_rn50": gdissect["clip_rn50"]["launches"]["wpmi"],
+         "launches_gdissect_cifar100": gdissect["cifar100"]["launches"]["wpmi"],
          "launches_zeroshot": gdissect["zeroshot"]["breastclip"]["launches"]["wpmi"],
          "launches_zoo": {n: r["launches"]["wpmi"] for n, r in zoo["runs"].items()},
          "max_abs_err": max(wpmi["max_abs_err"], gdissect["kernel1"]["max_abs_err"],
+                            gdissect["kernel1_cifar100"]["max_abs_err"],
                             *(r["max_abs_err"] for r in zoo["kernel1"].values())),
          # ms and wrapper_ms: through the wrapper (the first version's span); launch_ms: alone
          "ms": wpmi["ms"], "wrapper_ms": wpmi["ms"], "launch_ms": wpmi["launch_ms"],
@@ -2803,6 +2900,8 @@ def main():
          "bound_by": wpmi["bound_by"], "library_ms": None,
          # at the G-dissect shape (U = 9216 ViT-B/16 units, N = 2048: the gather design)
          "gdissect": gdissect["kernel1"],
+         # at the CIFAR-100 G-dissect's shape (U = 9216, N = 10000: the gather design)
+         "gdissect_cifar100": gdissect["kernel1_cifar100"],
          # at each zoo dissection's shape (phase 12)
          "zoo": zoo["kernel1"],
          # the V2-S C-dissect (phase 13a: 40 blocks, 6544 units, N = 512) and pretraining
@@ -2826,6 +2925,7 @@ def main():
          # the end-to-end fine-tune: 32 an eval batch (validation, train-eval), 0 in train steps
          "launches_finetune": finetune["end_to_end"]["launches"]["mbconv"],
          "launches_gdissect": gdissect["vit"]["launches"]["mbconv"],
+         "launches_gdissect_cifar100": gdissect["cifar100"]["launches"]["mbconv"],
          # zero-shot with the bf16 BreastClip: 32 a batch in embed_images
          "launches_zeroshot": gdissect["zeroshot"]["breastclip"]["launches"]["mbconv"],
          # the zoo dissections read phase 8's and 11's dissector caches: no B5 forward
@@ -2873,7 +2973,8 @@ def main():
         f"wire off/on/on/off {[round(r['img_per_s'], 2) for r in wire['runs']]} img/s, "
         f"fine-tune {finetune['train']['ms_per_step']:.2f} ms a step (remat "
         f"{finetune['train_remat']['ms_per_step']:.2f}), "
-        f"G-dissect {gdissect['vit']['img_per_s']:.2f} img/s, zoo "
+        f"G-dissect {gdissect['vit']['img_per_s']:.2f} img/s (CIFAR-100 "
+        f"{gdissect['cifar100']['img_per_s']:.2f}), zoo "
         f"{ {n: round(r['img_per_s'], 2) for n, r in zoo['runs'].items()} } img/s, "
         f"V2 C-dissect {v2pt['c_dissect_v2']['img_per_s']:.2f} img/s, pretrain "
         f"{v2pt['pretrain']['plain']['ms_per_step']:.2f} ms a step (BERT checkpoint "

@@ -1,5 +1,5 @@
 """Probe datasets, the D_probe side of dissection (`mammodissect/data/probes.py`,
-copied, without the `cifar100` probes, which need a torchvision download).
+copied).
 
 Every probe has a static `image_shape` (H, W, C), `len()` and `image(i)` -> HWC
 float32; the resident path reads `image_u8(i)` -> HWC uint8 and normalizes on the
@@ -19,6 +19,10 @@ Probe specs (`get_probe`):
                   keeps the rows of one `split` (default "training"), the EMBED
                   subsets select rows by their `Marker` / `Implant_type` columns
                   (`concept_vit/data_utils.py:169-251`)
+  cifar100_train, cifar100_val
+                  CIFAR-100's training or test split from a local torchvision
+                  cache (data_root=, nothing downloaded): 32x32x3 images with the
+                  ImageNet mean/std, the fine labels
 """
 from __future__ import annotations
 
@@ -310,6 +314,8 @@ def get_probe(spec: str, **kw) -> Probe:
         return CsvProbe(csv_file, root=kw.get("root", ""),
                         image_col=kw.get("image_col", "image_path"),
                         filters=kw.get("filters", NAMED_PROBES[spec]), **split_kw)
+    if spec.startswith("cifar100"):
+        return _cifar_probe(spec, **kw)
     raise KeyError(f"unknown probe spec {spec!r} (known: {', '.join(PROBES)})")
 
 
@@ -324,7 +330,7 @@ NAMED_PROBES = {
     "embed_non_implant_100": {"Implant_type": 0},
 }
 PROBES = ("synthetic", "synthetic_u8", "folder:<path>", "txt:<file>", "csv:<file>",
-          "combined:<a>+<b>", *NAMED_PROBES)
+          "combined:<a>+<b>", *NAMED_PROBES, "cifar100_train", "cifar100_val")
 
 
 def _default_folder_preprocess(shape: tuple):
@@ -340,3 +346,16 @@ def _default_folder_preprocess(shape: tuple):
         (T.resize(np.repeat(arr, 3, axis=-1) if arr.shape[-1] == 1 else arr, (h, w))
          - T.IMAGENET_MEAN) / T.IMAGENET_STD
     ).astype(np.float32)
+
+
+def _cifar_probe(spec: str, data_root: str = "./data_cache", **kw) -> ArrayProbe:
+    """CIFAR-100 from a local torchvision cache, never downloaded (the reference
+    downloads on demand, `data_utils.py:103-113`). The 32x32 images are not resized to
+    a tower's input size."""
+    import torchvision
+
+    train = spec.endswith("train")
+    ds = torchvision.datasets.CIFAR100(root=data_root, train=train, download=False)
+    imgs = ds.data.astype(np.float32) / 255.0  # [N, 32, 32, 3]
+    imgs = (imgs - T.IMAGENET_MEAN) / T.IMAGENET_STD
+    return ArrayProbe(imgs.astype(np.float32), np.asarray(ds.targets))

@@ -93,5 +93,6 @@ def test_combined_probe_matches_jax():
 
 
 def test_unknown_probe_raises():
-    with pytest.raises(KeyError):
-        P.get_probe("cifar100_train")
+    for pkg in (J, P):
+        with pytest.raises(KeyError):
+            pkg.get_probe("imagenet_broden")
