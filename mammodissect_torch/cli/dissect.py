@@ -25,7 +25,9 @@ rows, the first writes the CSV:
 `--wandb` logs the run's config and the reference driver's status events to an
 offline wandb run (a no-op without wandb), `--debug_nans` raises at the first module
 whose output holds a NaN or an Inf, `--profile DIR` writes a torch.profiler Chrome
-trace to DIR/trace.json and prints the top operators and the device's idle share.
+trace to DIR/trace.json (the program's spans and the hand kernels' launches are
+ranges in it) and prints the top operators, the device's idle share, and the run's
+spans per name: their count, total seconds and self seconds (`utils.profiling`).
 Targets: breastclip, breastclip_classifier, tiny_cnn, the CLIP ViTs (ViT-B/32, ViT-B/16,
 ViT-L/14, clip, clip-cub, clip-bloodmnist) and ModifiedResNets (clip_rn50, clip_rn101,
 clip_rn50x4); dissectors: breastclip, the CLIP ViTs, random.
@@ -43,7 +45,13 @@ from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
 from mammodissect_torch.parallel.mesh import is_master
 from mammodissect_torch.parallel.multihost import initialize
 from mammodissect_torch.train.loggers import WandbLogger
-from mammodissect_torch.utils.profiling import TRACE_FILE, enable_debug_nans, trace
+from mammodissect_torch.utils.profiling import (
+    TRACE_FILE,
+    enable_debug_nans,
+    span_table,
+    spans,
+    trace,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -188,6 +196,7 @@ def main(argv=None):
                 wall = time.perf_counter() - t0
             sort_by = "self_device_time_total" if on_gpu else "self_cpu_time_total"
             print(prof.key_averages().table(sort_by=sort_by, row_limit=25))
+            print(span_table(r for r in spans() if r.start_ns >= t0 * 1e9))
             if on_gpu:  # the device's idle share, from this run's own trace
                 with open(os.path.join(args.profile, TRACE_FILE)) as f:
                     dev = device_busy(json.load(f).get("traceEvents", []))

@@ -15,6 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
+from mammodissect_torch.utils.profiling import span
 from mammodissect_torch.utils.registry import Registry
 
 DISSECTORS: Registry = Registry("dissector")
@@ -67,10 +68,12 @@ class RandomDissector:
 
 
 def get_dissector(name: str, **kw):
-    """Build a registered dissector; model-backed ones register on first use."""
-    if name not in DISSECTORS:
-        if name.startswith("breastclip"):
-            import mammodissect_torch.models.breastclip  # noqa: F401  (registers)
-        elif name.lower().startswith(("vit-", "rn", "clip")):
-            import mammodissect_torch.models.clip_vit  # noqa: F401  (registers)
-    return DISSECTORS.get(name)(**kw)
+    """Build a registered dissector, in a span `build.dissector`; model-backed ones
+    register on first use."""
+    with span("build.dissector"):
+        if name not in DISSECTORS:
+            if name.startswith("breastclip"):
+                import mammodissect_torch.models.breastclip  # noqa: F401  (registers)
+            elif name.lower().startswith(("vit-", "rn", "clip")):
+                import mammodissect_torch.models.clip_vit  # noqa: F401  (registers)
+        return DISSECTORS.get(name)(**kw)

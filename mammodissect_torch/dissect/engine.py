@@ -71,6 +71,7 @@ from mammodissect_torch.ops.topk import topk_lowest_index
 from mammodissect_torch.parallel.collectives import all_gather, psum
 from mammodissect_torch.parallel.mesh import data_group, is_master
 from mammodissect_torch.parallel.multihost import comm_device, gather_array
+from mammodissect_torch.utils.profiling import current_job, last, new_job, span
 
 
 @dataclass
@@ -200,9 +201,8 @@ def _dissector_kwargs(cfg) -> dict:
 
 
 def _build_dissector(cfg, log):
-    t0 = time.time()
     dissector = get_dissector(cfg.clip_model, **_dissector_kwargs(cfg))
-    log(f"[dissector] built {cfg.clip_model} in {time.time() - t0:.2f}s")
+    log(f"[dissector] built {cfg.clip_model} in {last('build.dissector').seconds:.2f}s")
     return dissector
 
 
@@ -239,14 +239,16 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
             and cfg.clip_model == "breastclip" and not cfg.target_kwargs
             and not cfg.finetuned_ckpt and target is None and _has_u8(probe)):
         dissector = dissector or _build_dissector(cfg, log)
-        t0 = time.time()
-        acc, embs, n_images = _fused_harvest_embed(dissector, probe, layers, cfg.pool_mode, bs)
-        for l in layers:
-            _atomic_np_save(target_paths[l], acc[l])
-        _atomic_np_save(paths["clip"], embs)
+        with span("dissect.harvest") as stage:
+            acc, embs, n_images = _fused_harvest_embed(dissector, probe, layers, cfg.pool_mode,
+                                                       bs)
+            with span("dissect.io"):
+                for l in layers:
+                    _atomic_np_save(target_paths[l], acc[l])
+                _atomic_np_save(paths["clip"], embs)
         missing_layers, clip_missing = [], False
         log(f"[fused] harvested {len(layers)} layers + embedded {n_images} images in one "
-            f"pass, {time.time() - t0:.1f}s")
+            f"pass, {stage.seconds:.1f}s")
 
     # stage 1: the target's activations, every layer from one forward per batch
     if missing_layers:
@@ -254,36 +256,38 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
             kw = dict(ckpt_path=cfg.breast_clip_ckpt, finetuned_ckpt=cfg.finetuned_ckpt,
                       num_class=cfg.num_class, device=cfg.device)
             kw.update(cfg.target_kwargs)
-            t0 = time.time()
             target = get_target_model(cfg.target_model, **kw)
-            log(f"[target] built {cfg.target_model} in {time.time() - t0:.2f}s")
-        t0 = time.time()
-        acc, n_images = harvest_probe(target, probe, layers, cfg.pool_mode, bs)
-        for l in layers:
-            _atomic_np_save(target_paths[l], acc[l])
-        log(f"[harvest] {n_images} images x {len(layers)} layers in {time.time() - t0:.1f}s")
+            log(f"[target] built {cfg.target_model} in {last('build.target').seconds:.2f}s")
+        with span("dissect.harvest") as stage:
+            acc, n_images = harvest_probe(target, probe, layers, cfg.pool_mode, bs)
+            with span("dissect.io"):
+                for l in layers:
+                    _atomic_np_save(target_paths[l], acc[l])
+        log(f"[harvest] {n_images} images x {len(layers)} layers in {stage.seconds:.1f}s")
     elif _all_saved(list(target_paths.values())):
         log("[harvest] all target activations cached, skipping")
 
     # stage 2: the dissector's probe embeddings
     if clip_missing:
         dissector = dissector or _build_dissector(cfg, log)
-        t0 = time.time()
-        shard, n_total, group = _dp_shard(probe)
-        use_u8 = hasattr(dissector, "embed_images_u8") and _has_u8(shard)
-        feats = []
-        if use_u8:
-            pin = getattr(dissector, "device", torch.device("cpu")).type == "cuda"
-            for u8, n_valid in _prefetch_u8_batches(shard, bs, pin=pin):
-                feats.append(dissector.embed_images_u8(u8, shard.mean, shard.std)[:n_valid])
-        else:
-            for batch in iter_batches(shard, bs):
-                feats.append(dissector.embed_images(batch.images)[:batch.n_valid])
-        feats = np.concatenate(feats, axis=0)
-        if group is not None:
-            feats = gather_array(feats, group)[:n_total]
-        _atomic_np_save(paths["clip"], feats)
-        log(f"[clip-img] embedded D_probe in {time.time() - t0:.1f}s"
+        with span("dissect.embed") as stage:
+            shard, n_total, group = _dp_shard(probe)
+            use_u8 = hasattr(dissector, "embed_images_u8") and _has_u8(shard)
+            feats = []
+            if use_u8:
+                pin = getattr(dissector, "device", torch.device("cpu")).type == "cuda"
+                for u8, n_valid in _prefetch_u8_batches(shard, bs, pin=pin,
+                                                        name="embed.assemble"):
+                    feats.append(dissector.embed_images_u8(u8, shard.mean, shard.std)[:n_valid])
+            else:
+                for batch in iter_batches(shard, bs):
+                    feats.append(dissector.embed_images(batch.images)[:batch.n_valid])
+            feats = np.concatenate(feats, axis=0)
+            if group is not None:
+                feats = gather_array(feats, group)[:n_total]
+            with span("dissect.io"):
+                _atomic_np_save(paths["clip"], feats)
+        log(f"[clip-img] embedded D_probe in {stage.seconds:.1f}s"
             + (" (uint8 wire)" if use_u8 else ""))
     else:
         log("[clip-img] probe embeddings cached, skipping")
@@ -291,20 +295,24 @@ def save_activations(cfg, probe=None, target=None, dissector=None,
     # stage 3: the concepts' text embeddings
     if text_missing:
         dissector = dissector or _build_dissector(cfg, log)
-        t0 = time.time()
-        words = read_concepts(cfg.concept_set)
-        _atomic_np_save(paths["text"], dissector.embed_texts(words))
-        log(f"[clip-txt] embedded {len(words)} concepts in {time.time() - t0:.2f}s")
+        with span("dissect.text") as stage:
+            words = read_concepts(cfg.concept_set)
+            text = dissector.embed_texts(words)
+            with span("dissect.io"):
+                _atomic_np_save(paths["text"], text)
+        log(f"[clip-txt] embedded {len(words)} concepts in {stage.seconds:.2f}s")
     return paths
 
 
-def _prefetch(assemble: Callable, n: int, batch_size: int, start: int, depth: int = 2):
+def _prefetch(assemble: Callable, n: int, batch_size: int, start: int, depth: int = 2,
+              name: str = "harvest.assemble"):
     """Generator over `assemble(start_, stop)` items built on a producer thread, so
-    host-side batch assembly overlaps the device work of the previous batch.
-    Producer exceptions surface in the consumer; closing the generator stops the
-    producer."""
+    host-side batch assembly overlaps the device work of the previous batch; each item
+    is a span `name` of the consumer's job. Producer exceptions surface in the
+    consumer; closing the generator stops the producer."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
+    job = current_job()
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -318,7 +326,9 @@ def _prefetch(assemble: Callable, n: int, batch_size: int, start: int, depth: in
     def producer():
         try:
             for start_ in range(start, n, batch_size):
-                if not put(assemble(start_, min(start_ + batch_size, n))):
+                with span(name, job=job):
+                    item = assemble(start_, min(start_ + batch_size, n))
+                if not put(item):
                     return
         except Exception as e:  # surfaced to the consumer
             put(e)
@@ -340,10 +350,12 @@ def _prefetch(assemble: Callable, n: int, batch_size: int, start: int, depth: in
         thread.join()
 
 
-def _prefetch_u8_batches(probe, batch_size: int, start: int = 0, pin: bool = False):
+def _prefetch_u8_batches(probe, batch_size: int, start: int = 0, pin: bool = False,
+                         name: str = "harvest.assemble"):
     """uint8 batches [batch_size, H, W, C] (the tail batch zero-padded) as CPU tensors,
-    in pinned memory when `pin`, with their count of valid images. PyTorch's pinned
-    allocator does not reuse a block until the copy that reads it has finished."""
+    in pinned memory when `pin`, with their count of valid images, each assembled in a
+    span `name`. PyTorch's pinned allocator does not reuse a block until the copy that
+    reads it has finished."""
     h, w, c = probe.image_shape
 
     def assemble(start_, stop):
@@ -354,7 +366,7 @@ def _prefetch_u8_batches(probe, batch_size: int, start: int = 0, pin: bool = Fal
         arr[stop - start_:] = 0
         return u8, stop - start_
 
-    yield from _prefetch(assemble, len(probe), batch_size, start)
+    yield from _prefetch(assemble, len(probe), batch_size, start, name=name)
 
 
 def _prefetch_packed_batches(probe, batch_size: int, quantum: int, cap_bytes: int,
@@ -421,10 +433,17 @@ def _pipelined(batches, dispatch, drain, depth: int) -> int:
     return n_images
 
 
+def _to_host(t: torch.Tensor, wait: str) -> np.ndarray:
+    """`t` as numpy, read back in a span `wait` (a name ending in ".wait"): the host
+    waits there for the device."""
+    with span(wait):
+        return t.cpu().numpy()
+
+
 def _split_columns(acc: Dict[str, list], packed: torch.Tensor, n_valid: int, names, widths):
     """Append the valid rows of each layer's columns of a [B, U_total] device result
     to acc[layer] as numpy."""
-    packed = packed.cpu().numpy()
+    packed = _to_host(packed, "harvest.wait")
     off = 0
     for name, w in zip(names, widths):
         acc[name].append(packed[:n_valid, off:off + w])
@@ -490,7 +509,7 @@ def _fused_harvest_embed(dissector, probe, layers, pool_mode: str, batch_size: i
     def drain(result, n_valid):
         packed_dev, emb_dev, names, widths = result
         _split_columns(acc, packed_dev, n_valid, names, widths)
-        emb_acc.append(emb_dev.cpu().numpy()[:n_valid])
+        emb_acc.append(_to_host(emb_dev, "harvest.wait")[:n_valid])
 
     pin = dissector.device.type == "cuda"
     n_images = _pipelined(
@@ -515,6 +534,7 @@ class _ChunkSpiller:
     def __init__(self, cache_dir: str, key: str):
         os.makedirs(cache_dir, exist_ok=True)
         self.cache_dir, self.key = cache_dir, key
+        self._job = current_job()  # the writer's spans belong to the job that spills
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
         self._t = threading.Thread(target=self._run, daemon=True)
@@ -577,21 +597,25 @@ class _ChunkSpiller:
             if item is None:
                 return
             try:
-                if item[0] == "chunk":
-                    _, i, acc_a, acc_e = item
-                    for path, dev in zip(self.paths(i), (acc_a, acc_e)):
-                        host = dev.cpu().numpy()  # the device-to-host copy happens here
-                        _atomic_write(path, lambda f, h=host: np.save(f, h))
-                else:
-                    _, idx, acc_a, acc_e, offset, n_img = item
-                    a, e = acc_a.cpu().numpy(), acc_e.cpu().numpy()
-                    _atomic_write(
-                        self.partial_path,
-                        lambda f: np.savez(f, act=a, emb=e, chunk_index=idx,
-                                           offset=offset, n_images=n_img),
-                    )
+                with span("harvest.spill", job=self._job):
+                    self._write(item)
             except Exception as e:  # re-raised by close()
                 self._err = e
+
+    def _write(self, item):
+        if item[0] == "chunk":
+            _, i, acc_a, acc_e = item
+            for path, dev in zip(self.paths(i), (acc_a, acc_e)):
+                host = dev.cpu().numpy()  # the device-to-host copy happens here
+                _atomic_write(path, lambda f, h=host: np.save(f, h))
+        else:
+            _, idx, acc_a, acc_e, offset, n_img = item
+            a, e = acc_a.cpu().numpy(), acc_e.cpu().numpy()
+            _atomic_write(
+                self.partial_path,
+                lambda f: np.savez(f, act=a, emb=e, chunk_index=idx,
+                                   offset=offset, n_images=n_img),
+            )
 
     def close(self):
         self._q.put(None)
@@ -620,9 +644,11 @@ def fused_harvest_embed_resident(dissector, probe, layers, pool_mode: str, batch
     valid. `wire_pack` ("off"/"on"/"auto", `_decide_wire_pack`) sends each row's
     nonzero span instead of the whole canvas (dissect/packing.py); the canvas the
     step rebuilds is bit-identical. `timing`, if a list, collects per-batch
-    {"assemble_s", "put_s", "step_s", "sync_s", "pack_s", "wire_bytes"} (host clock;
-    the step is asynchronous on the GPU, so step_s is its enqueue time except on
-    sync batches; pack_s is the producer thread's packing time).
+    {"assemble_s", "put_s", "step_s", "sync_s", "pack_s", "wire_bytes"} (host clock,
+    from the spans `harvest.batch`, `harvest.put`, `harvest.step` and `harvest.wait`
+    that each batch records; the step is asynchronous on the GPU, so step_s is its
+    enqueue time and sync_s the wait of every `sync_every`-th batch; pack_s is the
+    producer thread's packing time).
 
     Returns (act_chunks, emb_chunks, names, widths, n_images): the chunks concatenate
     to [>= n_images, U_total] / [>= n_images, D] float32 on the device."""
@@ -678,39 +704,42 @@ def fused_harvest_embed_resident(dissector, probe, layers, pool_mode: str, batch
     i_batch = 0
     try:
         for payload, meta, n_valid, pack_s in batches:
-            t0 = time.perf_counter()
-            if acc_a is None:
-                acc_a, acc_e = zeros(u_total), zeros(emb_dim)
-            t1 = time.perf_counter()
-            wire = [payload.to(device, non_blocking=True)]
-            if packed:
-                wire.append(meta.to(device, non_blocking=True))
-            t2 = time.perf_counter()
-            step(acc_a, acc_e, *wire, offset)
-            t3 = time.perf_counter()
-            n_images += n_valid
-            consumed += batch_size
-            offset += batch_size
-            i_batch += 1
-            if offset == cap:
-                act_chunks.append(acc_a)
-                emb_chunks.append(acc_e)
-                if spiller is not None:
-                    spiller.submit(len(act_chunks) - 1, acc_a, acc_e)
-                acc_a = acc_e = None
-                offset = 0
-            t4 = t3
-            if i_batch % sync_every == 0:
-                _sync(device)
-                t4 = time.perf_counter()
-                if log is not None:
-                    log(f"[resident] {n_images}/{len(probe)} images")
+            waited = None
+            with span("harvest.batch") as batch:
+                if acc_a is None:
+                    acc_a, acc_e = zeros(u_total), zeros(emb_dim)
+                with span("harvest.put") as put:
+                    wire = [payload.to(device, non_blocking=True)]
+                    if packed:
+                        wire.append(meta.to(device, non_blocking=True))
+                with span("harvest.step") as stepped:
+                    step(acc_a, acc_e, *wire, offset)
+                n_images += n_valid
+                consumed += batch_size
+                offset += batch_size
+                i_batch += 1
+                if offset == cap:
+                    act_chunks.append(acc_a)
+                    emb_chunks.append(acc_e)
+                    if spiller is not None:
+                        spiller.submit(len(act_chunks) - 1, acc_a, acc_e)
+                    acc_a = acc_e = None
+                    offset = 0
+                if i_batch % sync_every == 0:
+                    with span("harvest.wait") as waited:
+                        _sync(device)
+                    if log is not None:
+                        log(f"[resident] {n_images}/{len(probe)} images")
+            # the batch's host seconds, from its spans' stamps
+            last_ns = waited.end if waited is not None else stepped.end
             if timing is not None:
                 wire_bytes = payload.numel() + (meta.numel() * meta.element_size() if packed else 0)
-                timing.append({"assemble_s": t1 - t0, "put_s": t2 - t1, "step_s": t3 - t2,
-                               "sync_s": t4 - t3, "pack_s": pack_s, "wire_bytes": wire_bytes})
+                timing.append({"assemble_s": (put.start - batch.start) / 1e9,
+                               "put_s": put.seconds, "step_s": stepped.seconds,
+                               "sync_s": (last_ns - stepped.end) / 1e9, "pack_s": pack_s,
+                               "wire_bytes": wire_bytes})
             if deadline is not None:
-                margin = min(1.5 * (t4 - t0), 120.0)
+                margin = min(1.5 * (last_ns - batch.start) / 1e9, 120.0)
                 if time.monotonic() >= deadline - margin:
                     if log is not None:
                         log(f"[resident] deadline reached at {n_images}/{len(probe)} "
@@ -758,7 +787,7 @@ def score_resident(act_chunks, emb_chunks, n_images: int, text_features: np.ndar
         sim = get_similarity_fn(similarity_name)(clip_feats, acts)
     top_vals, top_idx = topk_lowest_index(sim, k_c, dim=1)
     _, img_idx = topk_lowest_index(acts.T, k_i, dim=1)
-    return top_vals.cpu().numpy(), top_idx.cpu().numpy(), img_idx.cpu().numpy()
+    return tuple(_to_host(t, "score.wait") for t in (top_vals, top_idx, img_idx))
 
 
 def get_target_activations(target_save_name: str, neuron_idx=None) -> np.ndarray:
@@ -771,8 +800,9 @@ def get_target_activations(target_save_name: str, neuron_idx=None) -> np.ndarray
 def _load_clip_feats(clip_save_name: str, text_save_name: str) -> np.ndarray:
     """clip_feats = image @ text.T [N, C] float32 of the L2-normalized cached
     embeddings (`utils.py:566-612`)."""
-    image_features = np.load(clip_save_name).astype(np.float32)
-    text_features = np.load(text_save_name).astype(np.float32)
+    with span("dissect.io"):
+        image_features = np.load(clip_save_name).astype(np.float32)
+        text_features = np.load(text_save_name).astype(np.float32)
     image_features /= np.clip(np.linalg.norm(image_features, axis=1, keepdims=True), 1e-12, None)
     text_features /= np.clip(np.linalg.norm(text_features, axis=1, keepdims=True), 1e-12, None)
     return image_features @ text_features.T
@@ -791,8 +821,9 @@ def get_similarity_from_activations(target_save_name: str, clip_save_name: str,
     if getattr(similarity_fn, "__name__", "") == "soft_wpmi":
         kwargs["top_k"] = min(top_k, target_feats.shape[0])
     dev = resolve_device(device)
-    similarity = similarity_fn(torch.from_numpy(clip_feats).to(dev),
-                               torch.from_numpy(target_feats).to(dev), **kwargs).cpu().numpy()
+    similarity = _to_host(similarity_fn(torch.from_numpy(clip_feats).to(dev),
+                                        torch.from_numpy(target_feats).to(dev), **kwargs),
+                          "score.wait")
     return (similarity, target_feats) if return_target_feats else similarity
 
 
@@ -818,7 +849,7 @@ def score_all_layers(feats_by_layer: Dict[str, np.ndarray], clip_save_name: str,
         sim = SEGMENTED_FNS[similarity_name](clip_t, target_t, segment_ids, len(layers), **kwargs)
     else:
         sim = get_similarity_fn(similarity_name)(clip_t, target_t, **kwargs)
-    sim_cat = sim.cpu().numpy()
+    sim_cat = _to_host(sim, "score.wait")
     out, off = {}, 0
     for layer, w in zip(layers, widths):
         out[layer] = sim_cat[off:off + w]
@@ -879,44 +910,48 @@ def _run_dissection_resident(cfg: DissectConfig, probe, target=None, dissector=N
         rank, size = dist.get_rank(group), dist.get_world_size(group)
         cache_key += f"_host{rank}of{size}"
     deadline = time.monotonic() + cfg.deadline_s if cfg.deadline_s is not None else None
-    t0 = time.time()
-    act_chunks, emb_chunks, names, widths, n_images = fused_harvest_embed_resident(
-        dissector, probe, layers, cfg.pool_mode, bs, cache_dir=cfg.activation_dir,
-        cache_key=cache_key, log=log, deadline=deadline, timing=timing, wire_pack=wire_mode)
-    if n_images < len(probe):
-        log(f"[resident] PARTIAL dissection: {n_images}/{len(probe)} images within "
-            f"the {cfg.deadline_s}s budget; rerun to resume and complete")
-    index_map = None
-    if group is not None:
-        act_chunks, emb_chunks, n_images, index_map = _gather_resident(
-            act_chunks, emb_chunks, n_images, probe, group)
-        log(f"[resident] gathered {n_images} rows from {dist.get_world_size(group)} "
-            f"rank shards for scoring")
-    text_feats = dissector.embed_texts(words)
-    top_vals, top_idx, img_idx = score_resident(
-        act_chunks, emb_chunks, n_images, text_feats, widths, cfg.similarity_fn,
-        top_k=cfg.top_k, num_top_concepts=cfg.num_top_concepts,
-        num_top_images=cfg.num_top_images)
-    if index_map is not None:  # the gathered rows' top images as probe indices
-        img_idx = index_map[img_idx]
+    with span("dissect.harvest") as harvest:
+        act_chunks, emb_chunks, names, widths, n_images = fused_harvest_embed_resident(
+            dissector, probe, layers, cfg.pool_mode, bs, cache_dir=cfg.activation_dir,
+            cache_key=cache_key, log=log, deadline=deadline, timing=timing,
+            wire_pack=wire_mode)
+        if n_images < len(probe):
+            log(f"[resident] PARTIAL dissection: {n_images}/{len(probe)} images within "
+                f"the {cfg.deadline_s}s budget; rerun to resume and complete")
+        index_map = None
+        if group is not None:
+            act_chunks, emb_chunks, n_images, index_map = _gather_resident(
+                act_chunks, emb_chunks, n_images, probe, group)
+            log(f"[resident] gathered {n_images} rows from {dist.get_world_size(group)} "
+                f"rank shards for scoring")
+    with span("dissect.text"):
+        text_feats = dissector.embed_texts(words)
+    with span("dissect.score") as scored:
+        top_vals, top_idx, img_idx = score_resident(
+            act_chunks, emb_chunks, n_images, text_feats, widths, cfg.similarity_fn,
+            top_k=cfg.top_k, num_top_concepts=cfg.num_top_concepts,
+            num_top_images=cfg.num_top_images)
+        if index_map is not None:  # the gathered rows' top images as probe indices
+            img_idx = index_map[img_idx]
     log(f"[resident] dissected {n_images} images x {len(names)} layers on "
-        f"{dissector.device} in {time.time() - t0:.1f}s")
+        f"{dissector.device} in {(scored.end - harvest.start) / 1e9:.1f}s")
 
-    row_slices, off = {}, 0
-    for name, w in zip(names, widths):
-        row_slices[name] = slice(off, off + w)
-        off += w
-    outputs = {"layer": [], "unit": [], "description": [], "similarity": [], "images": []}
-    for layer in layers:  # CSV rows follow the requested layer order
-        sl = row_slices[layer]
-        w = sl.stop - sl.start
-        outputs["layer"].extend([layer] * w)
-        outputs["unit"].extend(range(w))
-        outputs["description"].extend([[words[int(i)] for i in row] for row in top_idx[sl]])
-        outputs["similarity"].extend([row.tolist() for row in top_vals[sl]])
-        outputs["images"].extend([row.tolist() for row in img_idx[sl]])
-        log(f"[score] {layer}: {w} units scored")
-    return write_results(outputs, cfg, write=is_master())
+    with span("dissect.results"):
+        row_slices, off = {}, 0
+        for name, w in zip(names, widths):
+            row_slices[name] = slice(off, off + w)
+            off += w
+        outputs = {"layer": [], "unit": [], "description": [], "similarity": [], "images": []}
+        for layer in layers:  # CSV rows follow the requested layer order
+            sl = row_slices[layer]
+            w = sl.stop - sl.start
+            outputs["layer"].extend([layer] * w)
+            outputs["unit"].extend(range(w))
+            outputs["description"].extend([[words[int(i)] for i in row] for row in top_idx[sl]])
+            outputs["similarity"].extend([row.tolist() for row in top_vals[sl]])
+            outputs["images"].extend([row.tolist() for row in img_idx[sl]])
+            log(f"[score] {layer}: {w} units scored")
+        return write_results(outputs, cfg, write=is_master())
 
 
 def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, log=print,
@@ -927,7 +962,15 @@ def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, 
 
     Runs on `cfg.device` (default CUDA; raises without a GPU unless "cpu").
     `timing`, if a list, collects the resident harvest's per-batch timing
-    (`fused_harvest_embed_resident`)."""
+    (`fused_harvest_embed_resident`). The call is a span `dissect.job` with a job id
+    of its own, which its stages' spans share: `dissect.harvest`, `dissect.embed`,
+    `dissect.text`, `dissect.score`, `dissect.results`, the staged path's `dissect.io`,
+    and the `*.wait` spans of the host's reads from the device."""
+    with span("dissect.job", job=new_job()):
+        return _run_dissection(cfg, probe, target, dissector, log, timing)
+
+
+def _run_dissection(cfg: DissectConfig, probe, target, dissector, log, timing):
     device = resolve_device(cfg.device)
     if device.type == "cuda":
         set_fp32_policy()
@@ -943,31 +986,33 @@ def run_dissection(cfg: DissectConfig, probe=None, target=None, dissector=None, 
     paths = save_activations(cfg, probe=probe, target=target, dissector=dissector, log=log)
     words = read_concepts(cfg.concept_set)
     layer_names = [canonical_layer_name(l) for l in cfg.target_layers]
-    feats_by_layer = {l: np.load(paths[f"target:{l}"]).astype(np.float32) for l in layer_names}
-    t0 = time.time()
-    sims = score_all_layers(feats_by_layer, paths["clip"], paths["text"], cfg.similarity_fn,
-                            top_k=cfg.top_k, device=device)
+    with span("dissect.io"):
+        feats_by_layer = {l: np.load(paths[f"target:{l}"]).astype(np.float32)
+                          for l in layer_names}
+    with span("dissect.score") as stage:
+        sims = score_all_layers(feats_by_layer, paths["clip"], paths["text"], cfg.similarity_fn,
+                                top_k=cfg.top_k, device=device)
     log(f"[scoring] {sum(s.shape[0] for s in sims.values())} units x {len(words)} concepts "
-        f"in {time.time() - t0:.2f}s")
+        f"in {stage.seconds:.2f}s")
 
-    t0 = time.time()
-    outputs = {"layer": [], "unit": [], "description": [], "similarity": [], "images": []}
-    for layer in layer_names:
-        sim, target_feats = sims[layer], feats_by_layer[layer]
-        k_c = min(cfg.num_top_concepts, sim.shape[1])
-        k_i = min(cfg.num_top_images, target_feats.shape[0])
-        # stable sorts: ties go to the lowest index, as on the resident path
-        top_concepts = np.argsort(-sim, axis=1, kind="stable")[:, :k_c]  # [U, k_c]
-        top_vals = np.take_along_axis(sim, top_concepts, axis=1)
-        top_images = np.argsort(-target_feats, axis=0, kind="stable")[:k_i].T  # [U, k_i]
-        n_units = sim.shape[0]
-        outputs["layer"].extend([layer] * n_units)
-        outputs["unit"].extend(range(n_units))
-        outputs["description"].extend([[words[int(i)] for i in row] for row in top_concepts])
-        outputs["similarity"].extend([row.tolist() for row in top_vals])
-        outputs["images"].extend([row.tolist() for row in top_images])
-        log(f"[score] {layer}: {n_units} units scored")
-    df, csv_path = write_results(outputs, cfg, write=is_master())
+    with span("dissect.results") as stage:
+        outputs = {"layer": [], "unit": [], "description": [], "similarity": [], "images": []}
+        for layer in layer_names:
+            sim, target_feats = sims[layer], feats_by_layer[layer]
+            k_c = min(cfg.num_top_concepts, sim.shape[1])
+            k_i = min(cfg.num_top_images, target_feats.shape[0])
+            # stable sorts: ties go to the lowest index, as on the resident path
+            top_concepts = np.argsort(-sim, axis=1, kind="stable")[:, :k_c]  # [U, k_c]
+            top_vals = np.take_along_axis(sim, top_concepts, axis=1)
+            top_images = np.argsort(-target_feats, axis=0, kind="stable")[:k_i].T  # [U, k_i]
+            n_units = sim.shape[0]
+            outputs["layer"].extend([layer] * n_units)
+            outputs["unit"].extend(range(n_units))
+            outputs["description"].extend([[words[int(i)] for i in row] for row in top_concepts])
+            outputs["similarity"].extend([row.tolist() for row in top_vals])
+            outputs["images"].extend([row.tolist() for row in top_images])
+            log(f"[score] {layer}: {n_units} units scored")
+        df, csv_path = write_results(outputs, cfg, write=is_master())
     log(f"[results] top concepts and images of {len(df)} units, CSV written in "
-        f"{time.time() - t0:.2f}s")
+        f"{stage.seconds:.2f}s")
     return df, csv_path

@@ -51,6 +51,7 @@ from mammodissect_torch.models.efficientnet import EfficientNet, EfficientNetMam
 from mammodissect_torch.models.layers import init_weights
 from mammodissect_torch.models.swin import SwinEncoder, drop_rel_pos_index, init_swin_weights
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
+from mammodissect_torch.utils.profiling import span
 from mammodissect_torch.utils.registry import Registry
 
 TARGETS: Registry = Registry("target_model")
@@ -221,20 +222,22 @@ VIT_ENCODER_TARGETS = ("vit", "dino", "mae", "vit-cub", "vit-bloodmnist", "dino-
 
 
 def get_target_model(name: str, **kw):
-    if name not in TARGETS:
-        # model-backed targets register on import. Exact names come before the
-        # prefix rules: the JAX dispatch sends "vit-bloodmnist" (prefix "vit-b") to
-        # the CLIP module, which does not register it, and resolves `clip_rn*` only
-        # after an explicit import
-        low = name.lower()
-        if name in VIT_ENCODER_TARGETS:
-            import mammodissect_torch.models.vit_encoder  # noqa: F401
-        elif low.startswith("resnet"):
-            import mammodissect_torch.models.resnet  # noqa: F401
-        elif low.startswith("clip_rn"):
-            import mammodissect_torch.models.modified_resnet  # noqa: F401
-        elif low.startswith(("vit-b", "vit-l", "rn", "clip")):
-            import mammodissect_torch.models.clip_vit  # noqa: F401
-        elif low.startswith(("vit", "dino", "mae")):
-            import mammodissect_torch.models.vit_encoder  # noqa: F401
-    return TARGETS.get(name)(**kw)
+    """Build a registered target, in a span `build.target`."""
+    with span("build.target"):
+        if name not in TARGETS:
+            # model-backed targets register on import. Exact names come before the
+            # prefix rules: the JAX dispatch sends "vit-bloodmnist" (prefix "vit-b") to
+            # the CLIP module, which does not register it, and resolves `clip_rn*` only
+            # after an explicit import
+            low = name.lower()
+            if name in VIT_ENCODER_TARGETS:
+                import mammodissect_torch.models.vit_encoder  # noqa: F401
+            elif low.startswith("resnet"):
+                import mammodissect_torch.models.resnet  # noqa: F401
+            elif low.startswith("clip_rn"):
+                import mammodissect_torch.models.modified_resnet  # noqa: F401
+            elif low.startswith(("vit-b", "vit-l", "rn", "clip")):
+                import mammodissect_torch.models.clip_vit  # noqa: F401
+            elif low.startswith(("vit", "dino", "mae")):
+                import mammodissect_torch.models.vit_encoder  # noqa: F401
+        return TARGETS.get(name)(**kw)

@@ -61,6 +61,7 @@ from mammodissect_torch.models.tokenizers import WordPieceTokenizer
 from mammodissect_torch.ops.activations import xla_bf16
 from mammodissect_torch.ops.normalize import u8_minmax_meanstd
 from mammodissect_torch.parallel.mesh import active_data_group, group_rank_and_size
+from mammodissect_torch.utils.profiling import span
 
 
 def default_model_config() -> Dict:
@@ -285,8 +286,9 @@ class BreastClip:
         for i in range(0, ids.shape[0], self.text_batch):
             i_dev = ids[i:i + self.text_batch].to(self.device)
             m_dev = mask[i:i + self.text_batch].to(self.device)
-            emb = self.module.project_text(self.module.encode_text(i_dev, m_dev))
-            out.append(emb.float().cpu())
+            emb = self.module.project_text(self.module.encode_text(i_dev, m_dev)).float()
+            with span("text.wait"):
+                out.append(emb.cpu())
         return torch.cat(out).numpy()
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
@@ -339,7 +341,9 @@ class BreastClip:
         asynchronous copy), normalized on the device."""
         u8 = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
         _, emb = self._encode_u8(u8, (), "avg", mean, std)
-        return emb.float().cpu().numpy()
+        emb = emb.float()
+        with span("embed.wait"):
+            return emb.cpu().numpy()
 
     @torch.inference_mode()
     def harvest_and_embed_u8_dispatch(self, images_u8, layers: Sequence[str], pool_mode: str,

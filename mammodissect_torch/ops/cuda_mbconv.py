@@ -26,7 +26,9 @@ float32 path's first kernel, which splits the expand weights into their tf32 par
 (one a float32 launch). The bf16 kernel reads its SiLU's sigmoid from a table
 (`silu_table`: built once a card by the kernel's own sigmoid, `sigmoid_bf16`, and
 cached here; `silu_tab_plain` is its lookup in plain PyTorch, held to the op chain
-over every bf16 value by the tests).
+over every bf16 value by the tests). Under a profiler each launch is a range
+`kernel2.fp32` or `kernel2.bf16` (`utils.profiling.kernel_range`), by which a trace
+attributes the launch's kernels.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from mammodissect_torch.ops import kernels
 from mammodissect_torch.ops.activations import _sigmoid_chain, silu_chain
+from mammodissect_torch.utils.profiling import kernel_range
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The bf16 SiLU's table (`csrc/mbconv_expand_dw.cu`): the sigmoid r of the bf16
@@ -242,14 +245,17 @@ def _launch(x, w_exp, m1, mul1, b1, w_dw, m2, mul2, b2):
     fn = lib.mbconv_expand_dw
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    name = "kernel2.fp32" if x.dtype == torch.float32 else "kernel2.bf16"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         for i in range(0, b, chunk):
             n = min(chunk, b - i)
-            rc = fn(code, k, x[i].data_ptr(), w_exp.data_ptr(),
-                    *(v.data_ptr() for v in vecs[:3]), w_dw.data_ptr(),
-                    *(v.data_ptr() for v in vecs[3:]), out[i].data_ptr(), squeeze[i].data_ptr(),
-                    partials.data_ptr(), wprep_ptr, table, n, h, w, cin, cexp, stream)
+            with kernel_range(name):
+                rc = fn(code, k, x[i].data_ptr(), w_exp.data_ptr(),
+                        *(v.data_ptr() for v in vecs[:3]), w_dw.data_ptr(),
+                        *(v.data_ptr() for v in vecs[3:]), out[i].data_ptr(),
+                        squeeze[i].data_ptr(), partials.data_ptr(), wprep_ptr, table, n, h, w,
+                        cin, cexp, stream)
             kernels.check(rc, "mbconv_expand_dw")
             if h and w and cexp:
                 fused_expand_dw.launches += 1

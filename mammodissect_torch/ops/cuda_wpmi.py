@@ -6,7 +6,8 @@ its plain PyTorch version.
 Counterpart of the TPU kernel `mammodissect/ops/pallas_wpmi.py::soft_wpmi_gather_logsum`.
 `soft_wpmi_gather_logsum` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors, and only then; the plain version is also the kernel's
-oracle on the card. `soft_wpmi_gather_logsum.launches` counts kernel launches.
+oracle on the card. `soft_wpmi_gather_logsum.launches` counts kernel launches; under
+a profiler each launch is a range `kernel1` (`utils.profiling.kernel_range`).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import ctypes
 import torch
 
 from mammodissect_torch.ops import kernels
+from mammodissect_torch.utils.profiling import kernel_range
 
 _MAX_UNIT_TILES = 65535  # gridDim.y of the kernel's gather design
 _UNITS_PER_TILE = 4      # its U_TILE
@@ -77,8 +79,9 @@ def _launch(clip_sm: torch.Tensor, inds: torch.Tensor, p_in: torch.Tensor,
     fn = _entry()
     with torch.cuda.device(clip_sm.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(clip_sm.data_ptr(), inds.data_ptr(), p_in.data_ptr(), out.data_ptr(),
-                bad.data_ptr(), n, c, u, k, float(min_prob), stream)
+        with kernel_range("kernel1"):
+            rc = fn(clip_sm.data_ptr(), inds.data_ptr(), p_in.data_ptr(), out.data_ptr(),
+                    bad.data_ptr(), n, c, u, k, float(min_prob), stream)
     kernels.check(rc, "wpmi_gather_logsum")
     soft_wpmi_gather_logsum.launches += 1
     return out, bad

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from mammodissect_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mammodissect_torch"
 KERNEL_SOURCES = ("wpmi_gather_logsum", "mbconv_expand_dw")
@@ -91,12 +93,14 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False) ->
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed; the build or the
+    load of a built library is a span `build.kernels`."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with span("build.kernels"):
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
 

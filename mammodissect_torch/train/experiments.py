@@ -54,6 +54,7 @@ from mammodissect_torch.train.data import ClassifierDataset, class_balanced_weig
 from mammodissect_torch.train.loggers import MasterOnlyWriter, WandbLogger
 from mammodissect_torch.train.trainer import Trainer, make_optimizer
 from mammodissect_torch.utils.meters import AverageMeter, timeSince
+from mammodissect_torch.utils.profiling import span
 from mammodissect_torch.utils.seed import seed_all
 
 
@@ -170,16 +171,18 @@ class _Topology:
 def build_model(cfg: FinetuneConfig) -> BreastClipClassifierModule:
     """The BreastClipClassifier of `cfg.arch` (`breast_clip_classifier.py:6-51`) with
     float32 master weights and `cfg.dtype` compute, random weights from `cfg.seed`,
-    then the image encoder of the Mammo-CLIP checkpoint when given (strict=False)."""
-    model = BreastClipClassifierModule(
-        variant=arch_variant(cfg.arch), n_class=cfg.n_class,
-        freeze_encoder=arch_is_linear_probe(cfg.arch), dtype=resolve_dtype(cfg.dtype),
-        param_dtype=torch.float32, bn_momentum=cfg.bn_momentum, pad_mode=cfg.pad_mode,
-        remat=cfg.remat)
-    init_weights(model, torch.Generator().manual_seed(cfg.seed))
-    if cfg.clip_chk_pt_path:
-        load_image_encoder_checkpoint(cfg.clip_chk_pt_path, model.image_encoder)
-    return model
+    then the image encoder of the Mammo-CLIP checkpoint when given (strict=False). A
+    span `build.model`."""
+    with span("build.model"):
+        model = BreastClipClassifierModule(
+            variant=arch_variant(cfg.arch), n_class=cfg.n_class,
+            freeze_encoder=arch_is_linear_probe(cfg.arch), dtype=resolve_dtype(cfg.dtype),
+            param_dtype=torch.float32, bn_momentum=cfg.bn_momentum, pad_mode=cfg.pad_mode,
+            remat=cfg.remat)
+        init_weights(model, torch.Generator().manual_seed(cfg.seed))
+        if cfg.clip_chk_pt_path:
+            load_image_encoder_checkpoint(cfg.clip_chk_pt_path, model.image_encoder)
+        return model
 
 
 def warmup_steps_of(cfg: FinetuneConfig, steps_per_epoch: int) -> int:

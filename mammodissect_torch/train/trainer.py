@@ -39,6 +39,7 @@ from mammodissect_torch.train.schedule import (
     lr_scheduler,
     set_scheduler_step,
 )
+from mammodissect_torch.utils.profiling import span
 
 
 def make_optimizer(model: torch.nn.Module, lr: float, weight_decay: float, warmup_steps: int,
@@ -128,28 +129,39 @@ class Trainer:
     def train_batch(self, images: np.ndarray, labels: np.ndarray,
                     n_valid: Optional[int] = None) -> float:
         """One update on a batch; `n_valid` real rows, the wrap-padded tail beyond it
-        weighted 0 in the loss. Returns the loss."""
-        self.model.train()
-        x, y, w = self._to_device(images, labels, n_valid)
-        self.optimizer.zero_grad(set_to_none=True)
-        # the backward inside too: a rematerialized block's recompute is part of the step
-        with data_parallel(self.group):
-            loss = self._loss(self.net(x, generator=self.generator), y, w)
-            if self.group is not None:
-                # this rank's share of the global weighted mean, times the ranks:
-                # DDP averages the gradients over them
-                w_global = psum(w.sum(), self.group)
-                loss = loss * (w.sum() / w_global.clamp_min(1e-12))
-                size = torch.distributed.get_world_size(self.group)
-                (loss * size).backward()
-                loss = psum(loss.detach(), self.group)
-            else:
-                loss.backward()
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        self.step += 1
-        return float(loss.detach())
+        weighted 0 in the loss. Returns the loss. The step is a span `train.step` whose
+        job is the step's number, around the spans of its phases: `train.h2d`,
+        `train.forward` (and the loss), `train.backward`, `train.optimizer` (and the
+        scheduler) and `train.sync`, the loss read back to the host."""
+        with span("train.step", job=self.step):
+            self.model.train()
+            with span("train.h2d"):
+                x, y, w = self._to_device(images, labels, n_valid)
+            self.optimizer.zero_grad(set_to_none=True)
+            # the backward inside too: a rematerialized block's recompute is part of the
+            # step
+            with data_parallel(self.group):
+                with span("train.forward"):
+                    loss = self._loss(self.net(x, generator=self.generator), y, w)
+                    if self.group is not None:
+                        # this rank's share of the global weighted mean, times the ranks:
+                        # DDP averages the gradients over them
+                        w_global = psum(w.sum(), self.group)
+                        loss = loss * (w.sum() / w_global.clamp_min(1e-12))
+                with span("train.backward"):
+                    if self.group is not None:
+                        size = torch.distributed.get_world_size(self.group)
+                        (loss * size).backward()
+                        loss = psum(loss.detach(), self.group)
+                    else:
+                        loss.backward()
+            with span("train.optimizer"):
+                self.optimizer.step()
+                if self.scheduler is not None:
+                    self.scheduler.step()
+            self.step += 1
+            with span("train.sync"):
+                return float(loss.detach())
 
     @torch.no_grad()
     def eval_batch(self, images: np.ndarray, labels: np.ndarray,

@@ -62,6 +62,9 @@ NAMES = {
         "jax.jit of the step; the port's step runs eagerly",
     "mammodissect.train.trainer.TrainerState":
         "flax's immutable train state; the port's Trainer holds the model and optimizer",
+    "mammodissect.utils.profiling.annotate":
+        "a labelled range in a trace; the port's `span` is one under the profiler and also "
+        "records itself (utils/profiling.py)",
 }
 # (JAX function or class, parameter): why the port's differs
 PARAMS = {
