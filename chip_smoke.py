@@ -4,7 +4,7 @@
 
 Phases, each of which must pass (any failure exits non-zero and prints no result):
   1. card: name and power limit (nvidia-smi);
-  2. build: both CUDA kernels from csrc/, one nvcc each, started together (always
+  2. build: the three CUDA kernels from csrc/, one nvcc each, started together (always
      compiled, so that ptxas's figures are printed);
   3. kernel 1 (soft-WPMI gather + log-reduce) against its plain PyTorch version at
      the main path's shape (U = 6992 units, C = 762 concepts, k = 100, N = the probe),
@@ -15,7 +15,12 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      bf16 at unit scale where the expand dominates each output, bf16 whose BatchNorm
      outputs reach every branch of the SiLU table (`bf16_wide`), and fp32, the last
      three at batch 2; first, the card's SiLU table against the CPU's, and the card's
-     sigmoid over all 65536 bf16 values against the entries the kernel reads;
+     sigmoid over all 65536 bf16 values against the entries the kernel reads; then
+     kernel 3 (the bf16 tower's BatchNorm epilogue) against its plain version (the
+     ATen chain) at each of the 52 sites of a B5 bf16 forward at the main path's batch
+     (7 with the SE's squeeze), output and squeeze bit for bit, two launches identical,
+     each site timed through the wrapper beside its plain version and its bound (bytes
+     at 3.35 TB/s);
   5. times: each kernel (kernel 1 through its wrapper, as the first version was
      timed, and its launch alone), its plain version and its bound (the least time
      an H100 SXM could take for the same work: 3.35 TB/s, 989 TFLOP/s bf16 tensor,
@@ -30,7 +35,11 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
   6. the main path: `run_dissection` resident at full width (B5 at 1520x912, all 39
      blocks, 12-layer BERT, the 762 concepts, soft-WPMI, bf16 tower) on random
      weights from a seed and mammogram-shaped synthetic images; the kernels' launch
-     counts are zeroed just before and read just after;
+     counts are zeroed just before and read just after (kernel 2 32 times a batch,
+     kernel 3 52, 7 of them with a squeeze; the same counts are checked in phase 8's
+     bf16 embed, in phase 10's eval batch and in phase 15's bf16 runs, and 0 kernel-3
+     launches in phase 8's fp32 target, the train and pretraining steps and phase 15's
+     fp32 runs);
   7. end-to-end agreement: the same resident dissection at a small geometry in fp32
      (TF32 off) on the card (kernels) and on the CPU (plain versions);
   8. C-Mammo-CLIP Dissect, staged through the disk cache, at full width: the
@@ -148,7 +157,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no result
      neurons over the local and global thresholds and its host seconds.
 
 Phase 2 also prints nvcc's -Xptxas=-v figures (registers, spills) of every kernel
-and fails when any instantiation of either kernel spills. Prints the
+and fails when any instantiation of any kernel spills. Prints the
 card's name and power limit and a JSON line {"kernels": [...]} before the last
 line; the last line is {"ok": true, "device": {...}}. Imports torch and the port
 only."""
@@ -320,7 +329,8 @@ KERNEL_LABELS = {"mbconv bf16 k3": "expand_dw_bf16_kernelILi3ELi2",
                  "mbconv fp32 k5": "expand_dw_f32_kernelILi5",
                  "mbconv fp32 weight split": "split_weights_kernel",
                  "wpmi slab": "gather_logsum_slab_kernel",
-                 "wpmi gather": "gather_logsum_kernel"}
+                 "wpmi gather": "gather_logsum_kernel",
+                 "bn epilogue": "bn_epilogue_kernel"}
 
 
 def kernel_label(function):
@@ -331,8 +341,8 @@ def kernel_label(function):
 
 
 def phase_build():
-    """Both kernels built from csrc/ with -Xptxas=-v; fails when any instantiation of
-    either kernel spills registers."""
+    """Every kernel built from csrc/ with -Xptxas=-v; fails when any instantiation of
+    any kernel spills registers."""
     from mammodissect_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -663,6 +673,104 @@ def phase_mbconv(device):
     return rows
 
 
+def b5_epilogue_sites(device):
+    """Kernel 3's sites in one bf16 inference forward of B5 at 1520x912 (the main
+    path's tower, all 39 blocks captured), recorded at batch 1 from the calls the
+    tower makes: {(C, H, W, act, squeeze): sites of that shape}."""
+    import torch
+
+    from mammodissect_torch.models import efficientnet
+    from mammodissect_torch.models.efficientnet import EfficientNetMammo
+
+    sites = {}
+    real = efficientnet.bn_epilogue
+
+    def record(v, mean, mul, bias, act=None, squeeze=False):
+        key = (*v.shape[1:], act, squeeze)
+        sites[key] = sites.get(key, 0) + 1
+        return real(v, mean, mul, bias, act=act, squeeze=squeeze)
+
+    torch.manual_seed(0)
+    tower = EfficientNetMammo("efficientnet-b5", in_channels=3, dtype=torch.bfloat16)
+    tower = tower.to(device).eval()
+    efficientnet.bn_epilogue = record
+    try:
+        with torch.no_grad():
+            tower(torch.zeros(1, *IMAGE_HW, 1, device=device), capture=range(39))
+    finally:
+        efficientnet.bn_epilogue = real
+    return sites
+
+
+def epilogue_bytes(b, c, h, w, act, squeeze):
+    """Bytes of one `bn_epilogue` call: the float32 sums read and the BatchNorm's three
+    [C] terms; the bf16 output and, for "silu_f32" or a squeeze, the float32 product
+    written; with a squeeze, ATen's sum of that product (read, and [B, C] written)."""
+    n = b * c * h * w
+    out = (0 if act == "silu_f32" else 2) + (4 if act == "silu_f32" or squeeze else 0)
+    return n * (4 + out) + 3 * c * 4 + (n * 4 + b * c * 4 if squeeze else 0)
+
+
+def phase_bn_epilogue(device):
+    """Kernel 3 against its plain version (the ATen chain) at each of the 52 sites of a
+    B5 bf16 forward at the main path's batch: random float32 sums (magnitudes from
+    e^-4 to e^4) and BatchNorm terms, the output and the squeeze bit for bit, two
+    launches bit-identical; each site timed through the wrapper (the squeeze's ATen
+    sum included), its plain version and its bound (bytes at 3.35 TB/s)."""
+    import torch
+
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue, bn_epilogue_plain
+
+    sites = b5_epilogue_sites(device)
+    n_sites = sum(sites.values())
+    n_squeeze = sum(n for key, n in sites.items() if key[4])
+    check((n_sites, n_squeeze) == (52, 7),
+          f"kernel 3: a B5 forward has {n_sites} sites, {n_squeeze} with a squeeze, not 52 and 7")
+    gen = torch.Generator(device=device).manual_seed(20)
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)  # noqa: E731
+    rows = []
+    by_size = sorted(sites.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2])
+    for (c, h, w, act, squeeze), count in by_size:
+        b = MAIN_BATCH
+        v = torch.randn(b, h, w, c, device=device, generator=gen)
+        v.mul_(torch.empty(b, h, w, c, device=device).uniform_(-4, 4, generator=gen).exp_())
+        v = v.permute(0, 3, 1, 2)  # [B, C, H, W] in channels_last memory
+        mean = torch.randn(c, device=device, generator=gen)
+        mul = torch.rand(c, device=device, generator=gen) * 2 + 0.05
+        bias = torch.randn(c, device=device, generator=gen)
+        args = (v, mean, mul, bias)
+        with torch.no_grad():
+            got, sq = bn_epilogue(*args, act=act, squeeze=squeeze)
+            again, sq_again = bn_epilogue(*args, act=act, squeeze=squeeze)
+            want, want_sq = bn_epilogue_plain(*args, act=act, squeeze=squeeze)
+            torch.cuda.synchronize()
+            row = {"C": c, "H": h, "W": w, "act": act, "squeeze": squeeze, "sites": count}
+            check(torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again)),
+                  f"kernel 3 ({row}): its output differs from the ATen chain's or between launches")
+            check(not squeeze or (torch.equal(bits(sq), bits(want_sq))
+                                  and torch.equal(bits(sq), bits(sq_again))),
+                  f"kernel 3 ({row}): its squeeze differs from the ATen chain's or between "
+                  "launches")
+            del got, sq, again, sq_again, want, want_sq
+            row["ms"] = cuda_ms(lambda: bn_epilogue(*args, act=act, squeeze=squeeze), reps=5)
+            row["plain_ms"] = cuda_ms(lambda: bn_epilogue_plain(*args, act=act, squeeze=squeeze),
+                                      reps=2)
+        row["bound_ms"] = epilogue_bytes(b, c, h, w, act, squeeze) / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        say(f"[kernel 3] C={c} @ {h}x{w} B={b} act={act} squeeze={squeeze} x{count}: bit for "
+            f"bit, two launches identical; {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.4f} ms")
+        del v, mean, mul, bias, args
+    torch.cuda.empty_cache()
+    forward = {key: sum(r[key] * r["sites"] for r in rows)
+               for key in ("ms", "plain_ms", "bound_ms")}
+    say(f"[kernel 3] one forward's 52 launches (7 with a squeeze) at batch {MAIN_BATCH}: "
+        f"{forward['ms']:.3f} ms through the wrapper (the squeezes' ATen sums included), "
+        f"plain {forward['plain_ms']:.3f} ms, bound {forward['bound_ms']:.3f} ms "
+        f"({100 * forward['bound_ms'] / forward['ms']:.1f}% of the bound)")
+    return {"rows": rows, **forward}
+
+
 def flagship_dissector(device):
     """The bf16 BreastClip dissector at full width (12-layer BERT), seed 0, and the
     seconds its build took."""
@@ -695,6 +803,7 @@ def phase_main_path(device, pool, dissector):
     import torch
 
     from mammodissect_torch.dissect.engine import run_dissection
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
 
@@ -704,13 +813,17 @@ def phase_main_path(device, pool, dissector):
     fused_expand_dw.launches = 0
     fused_expand_dw.reduce_launches = 0
     soft_wpmi_gather_logsum.launches = 0
+    bn_epilogue.launches = 0
+    bn_epilogue.squeeze_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     df, csv_path = run_dissection(cfg, probe=probe, dissector=dissector, log=lambda *_: None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"mbconv": fused_expand_dw.launches, "wpmi": soft_wpmi_gather_logsum.launches,
-                "mbconv_squeeze_reduce": fused_expand_dw.reduce_launches}
+                "mbconv_squeeze_reduce": fused_expand_dw.reduce_launches,
+                "bn_epilogue": bn_epilogue.launches,
+                "bn_epilogue_squeeze": bn_epilogue.squeeze_launches}
     n_batches = -(-MAIN_N // MAIN_BATCH)
     sims = np.array([json.loads(s) if isinstance(s, str) else s for s in df["similarity"]])
     check(len(df) == 6992, f"CSV has {len(df)} rows, expected 6992")
@@ -721,6 +834,10 @@ def phase_main_path(device, pool, dissector):
     check(launches["mbconv_squeeze_reduce"] == launches["mbconv"],
           f"kernel 2's squeeze reduction launched {launches['mbconv_squeeze_reduce']} times, "
           f"its kernel {launches['mbconv']}")
+    check((launches["bn_epilogue"], launches["bn_epilogue_squeeze"]) == (52 * n_batches,
+                                                                         7 * n_batches),
+          f"kernel 3 launched {launches['bn_epilogue']} times, {launches['bn_epilogue_squeeze']} "
+          f"with a squeeze, expected {52 * n_batches} and {7 * n_batches}")
     row = {"images": MAIN_N, "batch": MAIN_BATCH, "batches": n_batches, "wall_s": wall,
            "img_per_s": MAIN_N / wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "rows": len(df)}
@@ -789,6 +906,7 @@ def phase_c_dissect(device, pool, dissector):
     import torch
 
     from mammodissect_torch.dissect.engine import DissectConfig, run_dissection
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
 
@@ -807,6 +925,8 @@ def phase_c_dissect(device, pool, dissector):
         fused_expand_dw.launches = 0
         fused_expand_dw.weight_launches = 0
         soft_wpmi_gather_logsum.launches = 0
+        bn_epilogue.launches = 0
+        bn_epilogue.squeeze_launches = 0
         logs = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -815,7 +935,9 @@ def phase_c_dissect(device, pool, dissector):
         runs.append({"wall_s": time.perf_counter() - t0, "logs": logs, "df": df,
                      "launches": {"mbconv": fused_expand_dw.launches,
                                   "mbconv_weight_split": fused_expand_dw.weight_launches,
-                                  "wpmi": soft_wpmi_gather_logsum.launches},
+                                  "wpmi": soft_wpmi_gather_logsum.launches,
+                                  "bn_epilogue": bn_epilogue.launches,
+                                  "bn_epilogue_squeeze": bn_epilogue.squeeze_launches},
                      "peak": torch.cuda.max_memory_allocated()})
     first, rerun = runs
     sims = csv_similarities(first["df"])
@@ -829,13 +951,19 @@ def phase_c_dissect(device, pool, dissector):
           f"{first['launches']['mbconv_weight_split']} times, expected {32 * n_batches} "
           f"(once a launch of the fp32 target harvest)")
     check(first["launches"]["wpmi"] >= 1, "C-dissect: kernel 1 never launched")
+    check((first["launches"]["bn_epilogue"], first["launches"]["bn_epilogue_squeeze"])
+          == (52 * n_batches, 7 * n_batches),
+          f"C-dissect: kernel 3 launched {first['launches']['bn_epilogue']} times, "
+          f"{first['launches']['bn_epilogue_squeeze']} with a squeeze, expected "
+          f"{52 * n_batches} and {7 * n_batches} (the bf16 dissector embed; 0 in the fp32 "
+          f"target harvest)")
     check(any(l.startswith(f"[harvest] {C_DISSECT_N} images x 39 layers") for l in first["logs"]),
           f"C-dissect did not harvest the target: {first['logs']}")
     for line in ("[harvest] all target activations cached, skipping",
                  "[clip-img] probe embeddings cached, skipping"):
         check(line in rerun["logs"], f"C-dissect rerun did not log {line!r}: {rerun['logs']}")
-    check(rerun["launches"]["mbconv"] == 0,
-          f"C-dissect rerun launched kernel 2 {rerun['launches']['mbconv']} times")
+    check(rerun["launches"]["mbconv"] == 0 and rerun["launches"]["bn_epilogue"] == 0,
+          f"C-dissect rerun launched kernels 2 and 3: {rerun['launches']}")
     check(list(rerun["df"]["description"]) == list(first["df"]["description"])
           and list(rerun["df"]["images"]) == list(first["df"]["images"])
           and np.allclose(csv_similarities(rerun["df"]), sims, rtol=1e-6, atol=1e-6),
@@ -1059,6 +1187,7 @@ def ft_train_steps(device, pool, remat):
     full width. Returns (row, trainer)."""
     import torch
 
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.train.experiments import FinetuneConfig
 
@@ -1074,6 +1203,7 @@ def ft_train_steps(device, pool, remat):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_expand_dw.launches = 0
+    bn_epilogue.launches = 0
     losses = [trainer.train_batch(u8, y) for u8, y in batches[:2]]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1083,6 +1213,7 @@ def ft_train_steps(device, pool, remat):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_expand_dw.launches
+    k3_launches = bn_epilogue.launches
     ms = start.elapsed_time(end) / FT_TIMED_STEPS
     state = model.state_dict()
     unchanged = [k for k in watched if torch.equal(state[k], before[k])]
@@ -1090,18 +1221,21 @@ def ft_train_steps(device, pool, remat):
     check(not unchanged, f"fine-tune (remat={remat}): unchanged after the steps: {unchanged}")
     check(launches == 0, f"fine-tune (remat={remat}): kernel 2 launched {launches} times in "
           "train steps (the training forward is unfused)")
+    check(k3_launches == 0, f"fine-tune (remat={remat}): kernel 3 launched {k3_launches} times "
+          "in train steps (training keeps cuDNN's BatchNorm)")
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "fine-tune: parameters are not float32")
     row = {"remat": remat, "batch": FT_BATCH, "ms_per_step": ms,
            "img_per_s": FT_BATCH * 1e3 / ms, "wall_s_timed": wall, "first_loss": losses[0],
            "losses": losses, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "kernel2_launches_in_train_steps": launches}
+           "kernel2_launches_in_train_steps": launches,
+           "kernel3_launches_in_train_steps": k3_launches}
     say(f"[finetune] train steps, B5 classifier at {IMAGE_HW[0]}x{IMAGE_HW[1]}, batch {FT_BATCH}, "
         f"bf16 compute over fp32 weights, u8 wire, remat={remat}: {ms:.2f} ms a step "
         f"({row['img_per_s']:.2f} img/s; host clock {wall * 1e3 / FT_TIMED_STEPS:.2f} ms) over "
         f"{FT_TIMED_STEPS} timed steps, peak {row['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
         f"losses {[round(l, 4) for l in losses]}; weights and BN statistics changed; kernel 2 "
-        f"launches in train steps: {launches}")
+        f"launches in train steps: {launches}, kernel 3: {k3_launches}")
     return row, trainer
 
 
@@ -1112,20 +1246,25 @@ def ft_eval_and_checkpoint(device, pool, trainer, work):
 
     from mammodissect_torch.dissect.targets import get_target_model
     from mammodissect_torch.models.layers import Conv2d, Linear
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.ops.normalize import u8_minmax_meanstd
     from mammodissect_torch.train.checkpoints import load_checkpoint, save_checkpoint
 
     u8, y = _ft_batches(pool, 1, seed=5)[0]
     fused_expand_dw.launches = 0
+    bn_epilogue.launches = 0
     loss, preds = trainer.eval_batch(u8, y)
     torch.cuda.synchronize()
     launches = fused_expand_dw.launches
+    k3_launches = bn_epilogue.launches
     model = trainer.model
     fused = [b for b in model.image_encoder._blocks if b.fused_front]
     with torch.no_grad():
         dtypes = {b._front_weights_cached()[0].dtype for b in fused}
     check(launches == 32, f"eval of the trained model launched kernel 2 {launches} times, not 32")
+    check(k3_launches == 52,
+          f"eval of the trained model launched kernel 3 {k3_launches} times, not 52")
     check(dtypes == {torch.bfloat16}, f"kernel 2 ran with weights of {dtypes}, not bf16")
     check(np.isfinite(loss) and np.isfinite(preds).all(), "non-finite eval of the trained model")
     path = os.path.join(work, "finetuned.pth")
@@ -1156,10 +1295,12 @@ def ft_eval_and_checkpoint(device, pool, trainer, work):
     check(len(errs) == 40 and errs[worst] <= 1e-4,
           f"the C-dissect target differs from the trained model in fp32 at {worst}: {errs[worst]}")
     row = {"eval_kernel2_launches": launches, "eval_kernel2_dtype": "bfloat16",
+           "eval_kernel3_launches": k3_launches,
            "checkpoint_bytes": os.path.getsize(path), "checkpoint_save_s": save_s,
            "target_max_rel_err": errs[worst], "target_worst": worst,
            "logit_range": [float(want[0].min()), float(want[0].max())]}
-    say(f"[finetune] eval batch of the trained model: kernel 2 launched {launches} times, bf16; "
+    say(f"[finetune] eval batch of the trained model: kernel 2 launched {launches} times, bf16, "
+        f"kernel 3 {k3_launches} times; "
         f"checkpoint {row['checkpoint_bytes']} bytes written in {save_s:.2f} s, loaded as the "
         f"breastclip_classifier target (fp32): state dict equal; its logits and 39 pooled "
         f"blocks vs the trained model computing in fp32: max err {errs[worst]:.3g} of the "
@@ -1968,6 +2109,7 @@ def pretrain_steps(device, pool):
     fits."""
     import torch
 
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
     from mammodissect_torch.train.clip_trainer import batch_to_device, make_clip_train_step
@@ -2004,6 +2146,7 @@ def pretrain_steps(device, pool):
         torch.cuda.reset_peak_memory_stats()
         fused_expand_dw.launches = 0
         soft_wpmi_gather_logsum.launches = 0
+        bn_epilogue.launches = 0
         losses = [float(step(batch_to_device(b, device))) for b in bs[:2]]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2018,7 +2161,8 @@ def pretrain_steps(device, pool):
                 "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                 "losses": losses,
                 "launches": {"mbconv": fused_expand_dw.launches,
-                             "wpmi": soft_wpmi_gather_logsum.launches}}
+                             "wpmi": soft_wpmi_gather_logsum.launches,
+                             "bn_epilogue": bn_epilogue.launches}}
 
     # in turns: plain, checkpoint, checkpoint, plain
     turns = [run(batches, ckpt) for ckpt in (False, True, True, False)]
@@ -2031,7 +2175,7 @@ def pretrain_steps(device, pool):
           "pretraining: parameters are not float32")
     for name, r in rows.items():
         check(bool(np.isfinite(r["losses"]).all()), f"pretraining ({name}): losses {r['losses']}")
-        check(r["launches"] == {"mbconv": 0, "wpmi": 0},
+        check(r["launches"] == {"mbconv": 0, "wpmi": 0, "bn_epilogue": 0},
               f"pretraining ({name}): kernel launches {r['launches']} in train steps")
         say(f"[pretrain] B5 + 12-layer BERT at {IMAGE_HW[0]}x{IMAGE_HW[1]}, batch {r['batch']} "
             f"(+ image views: {2 * r['batch']} tower passes a step), {PT_TEXT_LEN} tokens x 2 "
@@ -2726,6 +2870,7 @@ def phase_fullwidth(device):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import _fullwidth_agreement as fw
     from mammodissect_torch.cli import analyze
+    from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
     from mammodissect_torch.ops.cuda_mbconv import fused_expand_dw
     from mammodissect_torch.ops.cuda_wpmi import soft_wpmi_gather_logsum
 
@@ -2763,6 +2908,7 @@ def phase_fullwidth(device):
             torch.backends.cudnn.allow_tf32 = False
             fused_expand_dw.launches = 0
             soft_wpmi_gather_logsum.launches = 0
+            bn_epilogue.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             csvs[name] = fw.run_port(probe, "cuda", os.path.join(work, ref, precision), path,
@@ -2770,10 +2916,12 @@ def phase_fullwidth(device):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"mbconv": fused_expand_dw.launches,
-                        "wpmi": soft_wpmi_gather_logsum.launches}
-            check(launches == {"mbconv": 32 * n_batches, "wpmi": 1},
+                        "wpmi": soft_wpmi_gather_logsum.launches,
+                        "bn_epilogue": bn_epilogue.launches}
+            k3 = 52 * n_batches if precision == "bf16" else 0  # the bf16 tower's only
+            check(launches == {"mbconv": 32 * n_batches, "wpmi": 1, "bn_epilogue": k3},
                   f"full-width {name}: launches {launches}, expected kernel 2 32 x "
-                  f"{n_batches} and kernel 1 once")
+                  f"{n_batches}, kernel 1 once and kernel 3 {k3} times")
             stats = fw.compare_csvs(str(csvs[name]), jax_df)
             with open(csvs[name], "rb") as f:
                 digest = hashlib.sha256(f.read()).hexdigest()
@@ -2838,9 +2986,10 @@ def main():
     wpmi = phase_wpmi(MAIN_N, device)
     silu_table = silu_table_check(device)
     mbconv = phase_mbconv(device)
+    epilogue = phase_bn_epilogue(device)
     fp32_f64 = fp32_precision_check(device)
-    say("[library] library_ms n/a for both kernels: no single PyTorch call computes "
-        "either fused function")
+    say("[library] library_ms n/a for every kernel: no single PyTorch call computes "
+        "any of the fused functions")
     t0 = time.perf_counter()
     pool = mammo_pool(POOL, *IMAGE_HW, seed=0)
     dissector, dissector_s = flagship_dissector(device)
@@ -2964,6 +3113,29 @@ def main():
          # phase 15: 32 a batch of 8 in each full-width agreement run (two probes,
          # fp32 and bf16)
          "launches_fullwidth": fw_launches["mbconv"]},
+        {"name": "bn_epilogue", "route": "cuda",
+         "source": "mammodissect_torch/csrc/bn_epilogue.cu",
+         # no TPU kernel: XLA fuses the conv's BatchNorm and SiLU chains
+         "replaces": None,
+         # 52 a batch of the bf16 tower, 7 of them with the SE's squeeze
+         "launches": main_path["launches"]["bn_epilogue"],
+         "squeeze_launches": main_path["launches"]["bn_epilogue_squeeze"],
+         # the bf16 dissector's embed only: the fp32 target bypasses it
+         "launches_c_dissect": c_dissect["launches"]["bn_epilogue"],
+         "launches_finetune_train_steps": finetune["train"]["kernel3_launches_in_train_steps"],
+         "launches_finetune_eval": finetune["eval"]["eval_kernel3_launches"],
+         "launches_pretrain": [v2pt["pretrain"][name]["launches"]["bn_epilogue"]
+                               for name in ("plain", "bert_checkpoint", "bert_checkpoint_again",
+                                            "plain_again")],
+         "launches_fullwidth": {name: r["launches"]["bn_epilogue"]
+                                for name, r in fullwidth["runs"].items()},
+         # bit for bit its plain version at every site (phase 5)
+         "max_abs_err": 0.0,
+         # one forward's 52 launches at the main path's batch, through the wrapper (the
+         # 7 squeezes' ATen sums included), and each distinct site
+         "ms": epilogue["ms"], "plain_ms": epilogue["plain_ms"],
+         "bound_ms": epilogue["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "sites": epilogue["rows"]},
     ]
     say(f"[kernel 2] one forward's 32 launches at batch {MAIN_BATCH}, bf16: "
         f"{per_forward('ms'):.3f} ms (first version {FIRST_VERSION_MS['mbconv_forward']} ms), "

@@ -20,7 +20,12 @@
   BatchNorm as flax's (mean, mul, bias) and returns, beside the front half's output,
   its sum over H x W before the last rounding: the SE's squeeze, so the SE reads no
   copy of the expanded tensor. Strided and expand-1 blocks use `F.conv2d`; their
-  BatchNorms in bf16 inference compute what kernel 2's do (`_conv_bn`). A
+  BatchNorms in bf16 inference compute what kernel 2's do (`_conv_bn_act`). At
+  every conv -> BatchNorm site outside kernel 2 (the stem, those blocks' convs, every
+  project conv, the head) the BatchNorm, its rounding and the SiLU that follows run in
+  bf16 inference on the GPU as one pass over the conv's float32 sums, which also
+  writes the SiLU's float32 product where the SE sums it:
+  `ops.cuda_bn_epilogue.bn_epilogue`, kernel 3. A
   FusedMBConv block (V2) has no depthwise conv:
   its k x k expand (or single conv), BN, SiLU, 1x1 project and BN run on
   `F.conv2d`, and its parameters take the lukemelas pattern (`_expand_conv`,
@@ -64,7 +69,8 @@ from mammodissect_torch.models.layers import (
     silu,
 )
 from mammodissect_torch.ops.activations import xla_bf16
-from mammodissect_torch.ops.cuda_mbconv import batch_norm_fma, bn_terms, fused_expand_dw
+from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue
+from mammodissect_torch.ops.cuda_mbconv import bn_terms, fused_expand_dw
 from mammodissect_torch.ops.pooling import pool_activation
 
 
@@ -167,19 +173,35 @@ def _xla_rounding(conv: Conv2d, bn: BatchNorm2d) -> bool:
         and not bn.training and not torch.is_grad_enabled()
 
 
-def _conv_bn(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """conv -> BatchNorm. At bf16 in inference, as XLA's CPU backend compiles the JAX
+def _conv_bn_act(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor, act: Optional[str] = None,
+                 squeeze: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """conv -> BatchNorm -> `act` (None, "silu", or "silu_f32": the SiLU's last product
+    unrounded in float32 at bf16 in inference, else the SiLU), and with `squeeze` the
+    SE's squeeze (the SiLU's product summed over H x W unrounded) where the
+    BatchNorm's output takes the bf16 program's roundings (`xla_bf16`). Returns (out,
+    the squeeze or None).
+
+    At bf16 in inference (`_xla_rounding`), as XLA's CPU backend compiles the JAX
     package's program: the BatchNorm promotes its input to float32, which absorbs
     the rounding of the convolution's float32 sums (XLA's excess precision), so the
     sums enter it unrounded; it computes (x - mean) * mul + bias with one FMA
-    (`batch_norm_fma`, kernel 2's BatchNorm); its result is rounded to bf16."""
+    (`batch_norm_fma`, kernel 2's BatchNorm); its result is rounded to bf16, and the
+    SiLU is XLA's rounded chain. `bn_epilogue` computes that in one pass (kernel 3)
+    over sums on the GPU, and as the ATen chain on the CPU."""
     if _xla_rounding(conv, bn):
         terms = _cached(bn, "_terms_cache", bn.eps,
                         (bn.weight, bn.bias, bn.running_mean, bn.running_var),
                         lambda: bn_terms(bn.weight, bn.bias, bn.running_mean,
                                          bn.running_var, bn.eps))
-        return batch_norm_fma(conv(x, sum_f32=True), *terms).to(torch.bfloat16)
-    return bn(conv(x))
+        return bn_epilogue(conv(x, sum_f32=True), *terms, act=act, squeeze=squeeze)
+    y = bn(conv(x))
+    s = silu(y, rounded=False).sum(dim=(2, 3)) if squeeze and xla_bf16(y) else None
+    return (y if act is None else silu(y)), s
+
+
+def _conv_bn(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """conv -> BatchNorm (`_conv_bn_act` without an activation)."""
+    return _conv_bn_act(conv, bn, x)[0]
 
 
 def _cached(owner: nn.Module, slot: str, key, sources, make):
@@ -300,11 +322,10 @@ class MBConvBlock(nn.Module):
             x, squeeze = self._front_fused(x)
         else:
             if ba.expand_ratio != 1:
-                x = silu(_conv_bn(self._expand_conv, self._bn0, x))
-            x = _conv_bn(self._depthwise_conv, self._bn1, _pad(x, padding))
-            if self.has_se and xla_bf16(x):
-                squeeze = silu(x, rounded=False).sum(dim=(2, 3))
-            x = silu(x)
+                x = _conv_bn_act(self._expand_conv, self._bn0, x, "silu")[0]
+            x = _pad(x, padding)  # an unpadded expansion is freed before the convolution
+            x, squeeze = _conv_bn_act(self._depthwise_conv, self._bn1, x, "silu",
+                                      squeeze=self.has_se)
         if self.has_se:
             x = self._se(x, squeeze)
         x = _conv_bn(self._project_conv, self._bn2, x)
@@ -343,10 +364,10 @@ class FusedMBConvBlock(nn.Module):
         `MBConvBlock.forward`."""
         inp = x
         if self.args.expand_ratio != 1:
-            x = silu(_conv_bn(self._expand_conv, self._bn0, _pad(x, padding)))
+            x = _conv_bn_act(self._expand_conv, self._bn0, _pad(x, padding), "silu")[0]
             x = _conv_bn(self._project_conv, self._bn2, x)
         else:
-            x = silu(_conv_bn(self._project_conv, self._bn2, _pad(x, padding)))
+            x = _conv_bn_act(self._project_conv, self._bn2, _pad(x, padding), "silu")[0]
         return _residual(self, x, inp, drop_rate, keep, capture)
 
 
@@ -480,7 +501,7 @@ class EfficientNet(nn.Module):
         if x.shape[1] == 1 and self.in_channels > 1:
             x = x.expand(-1, self.in_channels, -1, -1)
         x = x.contiguous(memory_format=torch.channels_last)
-        x = silu(_conv_bn(self._conv_stem, self._bn0, _pad(x, stem_pad)))
+        x = _conv_bn_act(self._conv_stem, self._bn0, _pad(x, stem_pad), "silu")[0]
         captured: Dict[str, torch.Tensor] = {}
         n_blocks = len(self._blocks)
         remat = self.remat and torch.is_grad_enabled()
@@ -503,10 +524,8 @@ class EfficientNet(nn.Module):
                 captured[f"blocks.{i}"] = pool_activation(pooled, pool_mode)
             else:
                 x = block(x, block_pads[i], rate, keep)
-        x = _conv_bn(self._conv_head, self._bn1, x)
-        if head_f32 and _xla_rounding(self._conv_head, self._bn1):
-            return silu(x, rounded=False), captured
-        return silu(x), captured
+        x, _ = _conv_bn_act(self._conv_head, self._bn1, x, "silu_f32" if head_f32 else "silu")
+        return x, captured
 
 
 class EfficientNetMammo(EfficientNet):

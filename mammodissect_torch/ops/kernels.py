@@ -29,7 +29,7 @@ from mammodissect_torch.utils.profiling import span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mammodissect_torch"
-KERNEL_SOURCES = ("wpmi_gather_logsum", "mbconv_expand_dw")
+KERNEL_SOURCES = ("wpmi_gather_logsum", "mbconv_expand_dw", "bn_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

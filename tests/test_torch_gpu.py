@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from mammodissect_torch.ops.cuda_bn_epilogue import bn_epilogue, bn_epilogue_plain
 from mammodissect_torch.ops.cuda_mbconv import expand_dw_plain, fused_expand_dw
 from mammodissect_torch.ops.cuda_wpmi import (
     soft_wpmi_gather_logsum,
@@ -382,6 +383,145 @@ def test_mbconv_kernel_refuses_inputs_that_need_a_gradient(cuda):
         fused_expand_dw(*args)
     with torch.no_grad():
         fused_expand_dw(*args)
+
+
+def _epilogue_sums(c, terms, unaligned, device):
+    """Float32 sums v [2, C, H, 4] in channels_last memory and BatchNorm terms (mean,
+    mul, bias). "identity": mean 0, mul 1, bias 0, and v holds every finite bf16 value,
+    so the BatchNorm's rounded output takes each of them (the SiLU all of its finite
+    inputs). "random": sums from 1e-3 to ~1e3 in size and random terms. `unaligned`:
+    v one float past a 16-byte boundary (the kernel's channel-at-a-time path)."""
+    gen = torch.Generator().manual_seed(c)
+    bits = torch.arange(65536, dtype=torch.int32)
+    finite = torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16).view(
+        torch.bfloat16).float()
+    finite = finite[torch.isfinite(finite)]
+    h = -(-finite.numel() // (2 * 4 * c))
+    n = 2 * h * 4 * c
+    if terms == "identity":
+        flat = finite.repeat(-(-n // finite.numel()))[:n]
+        flat = flat[torch.randperm(n, generator=gen)]
+        mean, mul, bias = torch.zeros(c), torch.ones(c), torch.zeros(c)
+    else:
+        scale = torch.exp(torch.empty(n).uniform_(-7, 7, generator=gen))
+        flat = torch.randn(n, generator=gen) * scale
+        mean = torch.randn(c, generator=gen)
+        mul = (torch.rand(c, generator=gen) * 2 + 0.05) * torch.sign(torch.randn(c, generator=gen))
+        bias = torch.randn(c, generator=gen)
+    buf = torch.empty(n + 1, device=device)
+    v = buf[1:] if unaligned else buf[:n]
+    v.copy_(flat.to(device))
+    v = v.view(2, h, 4, c).permute(0, 3, 1, 2)
+    assert v.is_contiguous(memory_format=torch.channels_last)
+    assert (v.data_ptr() % 16 != 0) == unaligned
+    return v, mean.to(device), mul.to(device), bias.to(device)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("terms", ["identity", "random"])
+@pytest.mark.parametrize("act,squeeze", [(None, False), ("silu", False), ("silu", True),
+                                         ("silu_f32", False)])
+@pytest.mark.parametrize("c,unaligned", [(24, False), (40, False), (48, False), (144, False),
+                                         (2048, False), (37, False), (48, True)])
+def test_bn_epilogue_matches_the_aten_chain_bit_for_bit(cuda, terms, act, squeeze, c,
+                                                        unaligned):
+    """Kernel 3 against its plain version (the ATen chain on the card) at B5's channel
+    counts, an odd one (37) and unaligned sums (both on the channel-at-a-time path):
+    the output and the squeeze bit for bit over every finite bf16 BatchNorm output
+    (the squeeze is ATen's sum of the kernel's float32 product); two launches
+    bit-identical."""
+    v, mean, mul, bias = _epilogue_sums(c, terms, unaligned, cuda)
+    before = bn_epilogue.launches, bn_epilogue.squeeze_launches
+    out, sq = bn_epilogue(v, mean, mul, bias, act=act, squeeze=squeeze)
+    torch.cuda.synchronize()
+    assert (bn_epilogue.launches, bn_epilogue.squeeze_launches) == (before[0] + 1,
+                                                                    before[1] + squeeze)
+    want, want_sq = bn_epilogue_plain(v, mean, mul, bias, act=act, squeeze=squeeze)
+    assert out.dtype == want.dtype and out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(out), _bits(want))
+    assert (sq is None) == (not squeeze) and (sq is None or torch.equal(_bits(sq), _bits(want_sq)))
+    again, _ = bn_epilogue(v, mean, mul, bias, act=act, squeeze=squeeze)
+    assert torch.equal(_bits(again), _bits(out))
+
+
+@pytest.mark.parametrize("act,squeeze", [(None, False), ("silu", True)])
+def test_bn_epilogue_takes_nchw_sums(cuda, act, squeeze):
+    """Sums in NCHW memory go through the kernel too, copied to channels_last first:
+    the output bit for bit the ATen chain's on either layout, the squeeze bit for bit
+    the ATen chain's on the channels_last copy (ATen's sum over H x W adds in memory
+    order, so on the NCHW sums it differs by float32 summation order)."""
+    v, mean, mul, bias = _epilogue_sums(40, "random", False, cuda)
+    nchw = v.contiguous()
+    assert not nchw.is_contiguous(memory_format=torch.channels_last)
+    before = bn_epilogue.launches
+    out, sq = bn_epilogue(nchw, mean, mul, bias, act=act, squeeze=squeeze)
+    torch.cuda.synchronize()
+    assert bn_epilogue.launches == before + 1
+    want, want_sq = bn_epilogue_plain(v, mean, mul, bias, act=act, squeeze=squeeze)
+    want_nchw, _ = bn_epilogue_plain(nchw, mean, mul, bias, act=act, squeeze=False)
+    assert torch.equal(_bits(out), _bits(want)) and torch.equal(_bits(out), _bits(want_nchw))
+    assert sq is None or torch.equal(_bits(sq), _bits(want_sq))
+
+
+def test_v2s_bf16_forward_keeps_the_aten_chains_bits(cuda, monkeypatch):
+    """One bf16 inference forward of EfficientNetV2-S on the card: kernel 3 at its 54
+    sites (2 with a squeeze), and the features and the 40 captures bit for bit those of
+    the same forward with the ATen chain in the kernel's place."""
+    from mammodissect_torch.models.efficientnet import EfficientNetMammo
+    from mammodissect_torch.ops import cuda_bn_epilogue
+
+    torch.manual_seed(0)
+    tower = EfficientNetMammo("efficientnetv2-s", in_channels=1, dtype=torch.bfloat16)
+    tower = tower.to(cuda).eval()
+    x = torch.randn(2, 96, 64, 1, device=cuda)
+    before = bn_epilogue.launches, bn_epilogue.squeeze_launches
+    with torch.no_grad():
+        got = tower(x, capture=range(len(tower._blocks)))
+    assert (bn_epilogue.launches - before[0], bn_epilogue.squeeze_launches - before[1]) == (54, 2)
+    monkeypatch.setattr(cuda_bn_epilogue, "_launch", bn_epilogue_plain)
+    with torch.no_grad():
+        want = tower(x, capture=range(len(tower._blocks)))
+    assert torch.equal(_bits(got[0]), _bits(want[0])) and len(got[1]) == 40
+    assert all(torch.equal(_bits(got[1][k]), _bits(want[1][k])) for k in want[1])
+
+
+def test_bn_epilogue_refuses_inputs_that_need_a_gradient(cuda):
+    v, mean, mul, bias = _epilogue_sums(24, "random", False, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bn_epilogue(v, mean, mul, bias.clone().requires_grad_(), act="silu")
+    with torch.no_grad():
+        bn_epilogue(v, mean, mul, bias, act="silu")
+
+
+def test_b5_forward_launches_kernel_3_at_52_sites(cuda):
+    """One bf16 inference forward of the B5 tower: kernel 3 at 52 sites, 7 with a
+    squeeze, and no addcmul, nor an exp or reciprocal of an activation beyond the SE
+    gates' [B, C, 1, 1] (the BatchNorm terms' [C] are prepared once); 0 launches in a
+    bf16 training forward and backward and in an fp32 forward."""
+    from mammodissect_torch.models.efficientnet import EfficientNetMammo
+
+    x = torch.randn(2, 192, 128, 1, device=cuda)
+    tower = EfficientNetMammo("efficientnet-b5", in_channels=3, dtype=torch.bfloat16)
+    tower = tower.to(cuda).eval()
+    before = bn_epilogue.launches, bn_epilogue.squeeze_launches
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU], record_shapes=True) as prof:
+        tower(x, capture=range(39))
+    assert (bn_epilogue.launches - before[0], bn_epilogue.squeeze_launches - before[1]) == (52, 7)
+    ops = [(e.name, e.input_shapes) for e in prof.events()
+           if e.name in ("aten::addcmul", "aten::exp", "aten::reciprocal")]
+    assert ops and not any(name == "aten::addcmul" for name, _ in ops)
+    assert all(len(shapes[0]) != 4 or shapes[0][2:] == [1, 1] for _, shapes in ops), ops
+    before = bn_epilogue.launches
+    tower = EfficientNetMammo("efficientnet-b5", in_channels=3, dtype=torch.bfloat16,
+                              param_dtype=torch.float32).to(cuda).train()
+    tower(x)[0].float().sum().backward()
+    with torch.no_grad():
+        EfficientNetMammo("efficientnet-b5", in_channels=3).to(cuda).eval()(x)
+    assert bn_epilogue.launches == before
 
 
 def test_finetune_train_steps_cuda_match_cpu(cuda):

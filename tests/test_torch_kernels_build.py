@@ -46,3 +46,15 @@ def test_library_path_ignores_files_that_are_not_headers(csrc):
     before = kernels.library_path("mbconv_expand_dw")
     (csrc / "notes.txt").write_text("not read by nvcc")
     assert kernels.library_path("mbconv_expand_dw") == before
+
+
+def test_the_shared_bf16_header_rebuilds_both_libraries_that_include_it(csrc):
+    """Kernel 2 and kernel 3 compute the bf16 program's BatchNorm and SiLU from one
+    header: an edit to it builds both anew."""
+    names = ("mbconv_expand_dw", "bn_epilogue")
+    for name in names:
+        assert '#include "bf16_xla.cuh"' in (csrc / f"{name}.cu").read_text()
+    before = [kernels.library_path(name) for name in names]
+    header = csrc / "bf16_xla.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(kernels.library_path(name) != path for name, path in zip(names, before))
